@@ -7,33 +7,79 @@ one NVIDIA GPU. Run from the repository root:
 Phases, each failing the run (exit 1) on any error:
 
 1. needs torch.cuda; prints the card's name and power limit;
-2. builds the hand-written kernels with nvcc (build seconds);
-3. kernel vs plain twin on the card at 256² on the 12,880-face synthetic
-   body: 16 poses, plus a random scene with one oversized front face and
-   a scene behind the far plane; fim equal, weights <= 2e-4, flow <=
-   1e-5; median ms of kernel and twin at batch 16;
-4. the slice at full width (256², conv_dim 64, 6 res blocks, bf16):
-   Imitator.personalize and three 64-frame inference_by_smpls requests
-   at batch 16, with the kernels' launch counts over that run;
-5. the same slice in float32 with TF32 off, 2 frames, the card against
-   the CPU with the same weights: the kernels on the CPU run's geometry
-   give the CPU twins' fim (equal), weights and flow; the generator tail
-   on the card from the CPU's raster products gives preds within 1e-2.
-   The gap of two fully independent runs is printed (the float32 SMPL
-   matmuls differ by ~1e-7 between devices and can flip edge pixels).
+2. builds the hand-written kernels with nvcc, every csrc/*.cu at once
+   (build seconds);
+3. bucket kernels vs their plain twins on the card at 256² on the
+   12,880-face synthetic body: 16 poses, plus a random scene with one
+   oversized front face and a scene behind the far plane; fim equal,
+   weights <= 2e-4, flow <= 1e-5; median ms of kernel and twin at
+   batch 16;
+3b. zbuffer_tiles vs its plain twin at the renderer's tile_params()
+   point (tile 8, cap 288, span 3 at 256²) on the same 16 bodies, the
+   random + oversized scene, the behind-far scene and 3,000 small faces
+   at cap 4, where both drop the same candidates; fim equal, weights
+   <= 2e-4; its fim on the bodies equals zbuffer_bucket_rows'; tile
+   stats; median ms of kernel and twin on the bodies (a shape the
+   renderer does not send it);
+3c. the renderer's tiled route: render_fim_wim on 16 posed 63,480-face
+   bodies launches zbuffer_tiles; on those slots the kernel's fim equals
+   the twin's and its weights are within 2e-4; median ms of kernel and
+   twin there, the kernel's record;
+4. the given-SMPL slice at full width (256², conv_dim 64, 6 res blocks,
+   bf16): Imitator.personalize and three 64-frame inference_by_smpls
+   requests at batch 16, with the kernels' launch counts over that run;
+4b. the image-driven leg at full width: HMR (ResNet-50 at 224², float32,
+   TF32 off) + the same generator: personalize(src_img) with no given
+   SMPL, then three 64-frame inference(tgt_imgs224, batch=16) requests;
+   frames/s, HMR ms per batch of 16, launch counts;
+5. the given-SMPL slice in float32 with TF32 off, 2 frames, the card
+   against the CPU with the same weights: the kernels on the CPU run's
+   geometry give the CPU twins' fim (equal), weights and flow; the
+   generator tail on the card from the CPU's raster products gives preds
+   within 1e-2. The gap of two fully independent runs is printed (the
+   float32 SMPL matmuls differ by ~1e-7 between devices and can flip
+   edge pixels);
+5b. HMR on the card against the CPU, same weights and 224² images,
+   with the process's TF32 flags on (HMR keeps full float32 itself): the
+   2048-d features within 1e-5 of their largest magnitude, which the
+   same encoder run in TF32 must fail, and max |dθ| <= 1e-4;
+6. one full-leg request under torch.profiler: summed kernel time, the
+   device's idle share of the wall time and the largest kernels
+   (full tables in chiprun_out/profile_*.txt).
 
-The line before the last is nvidia-smi's name and power limit, the one
-before it the kernels' JSON record; the last line is the JSON status.
-Weights are random (seeded); no checkpoint is read.
+Each path (3c, 4, 4b) runs with every launch count set to 0 just before
+it and read just after, and fails if a kernel of the path never
+launched. The line before the last is nvidia-smi's name and power
+limit, the one before it the kernels' JSON record (with each kernel's
+bound: the larger of its bytes over 3.35 TB/s and its float operations
+over 67 TFLOP/s, the H100 SXM's published peaks, both counted on this
+run's inputs: 15 operations per (pixel, live candidate) pair for the
+inside test and 23 more per pair inside its face; every input read
+once, except the slots' face ids, read only where a slot is live); the
+last line is the JSON status. Weights are random (seeded); no checkpoint is read.
 """
 
+import copy
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 GEOM = dict(s=256, tile=16, span=2)
+TILES = (8, 288, 3)          # the renderer's tile_params() at 256², nf 12,880
 FIM_EXACT, W_TOL, T_TOL, PRED_TOL = 0, 2e-4, 1e-5, 1e-2
+# HMR card vs CPU: float32 convs in another summation order (cuDNN's
+# algorithms against oneDNN's) move the 2048-d ResNet features by ~1e-6
+# of their largest magnitude; TF32's 10-bit mantissa moves them by
+# ~1e-3, so FEAT_RTOL passes full float32 and fails TF32. θ itself moves
+# little: the IEF adds the features through fc3 weights scaled by 5e-5
+FEAT_RTOL, THETA_TOL = 1e-5, 1e-4
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: fp32 non-tensor, HBM3
+# float operations of the z-buffer contract: the inside test (three edge
+# functions) for every (pixel, candidate) pair; barycentric rows 12,
+# renormalisation 5 and depth 6 only for the pairs that pass it
+OPS_TEST, OPS_HIT = 15, 23
 
 
 def check(cond, msg):
@@ -63,6 +109,82 @@ def median_ms(fn, reps):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return sorted(times)[len(times) // 2]
+
+
+def bound(ops, nbytes):
+    """Least time the card could take: (ms, what bounds it)."""
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def zbuffer_ops(cr, gather, m, b, s, tile):
+    """Float operations these inputs need: OPS_TEST per (pixel, live
+    candidate) pair plus OPS_HIT per pair inside its face. gather(c0, c1)
+    gives candidates c0..c1 of every tile: (face verts (B, T, C, 9), live
+    (B, T, C) bool)."""
+    n_tiles, npx = (s // tile) ** 2, tile * tile
+    xi, yi, xp, yp = cr._tile_pixels(s, tile, gather(0, 1)[0].device)
+    chunk = max(1, cr._PLAIN_BLOCK // (b * n_tiles * npx))
+    pairs = hits = 0
+    for c0 in range(0, m, chunk):
+        d, live = gather(c0, c0 + chunk)
+        inside = cr._pair_weights(d, xi, yi, xp, yp, float(s))[0]
+        pairs += int(live.sum()) * npx
+        hits += int((inside & live[:, :, None, :]).sum())
+    return OPS_TEST * pairs + OPS_HIT * hits
+
+
+def bucket_ops(cr, verts, starts, s, tile, span):
+    pos = cr._tile_candidates(starts, s // tile, span)
+    bidx = batch_index(verts)
+
+    def gather(c0, c1):
+        p = pos[..., c0:c1]
+        return verts[bidx, p.clamp(min=0)], p >= 0
+    return zbuffer_ops(cr, gather, pos.shape[-1], verts.shape[0], s, tile)
+
+
+def tiles_work(cr, packed, cand, valid, s, tile):
+    """(float operations, bytes) the fixed-slot z-buffer needs on these
+    slots: the face table and valid read once, cand only where a slot is
+    live, fim and the weights written once."""
+    nf = packed.shape[1]
+    live = (valid != 0) & (cand >= 0) & (cand < nf)
+    used = slots_used(live)
+    bidx = batch_index(packed)
+
+    def gather(c0, c1):
+        ids = cand[..., c0:c1].clamp(0, nf - 1).long()
+        return packed[bidx, ids], live[..., c0:c1]
+    ops = zbuffer_ops(cr, gather, used, packed.shape[0], s, tile)
+    n_px = packed.shape[0] * s * s
+    return ops, nbytes(packed, valid) + 4 * int(live.sum()) + 16 * n_px
+
+
+def batch_index(t):
+    import torch
+    return torch.arange(t.shape[0], device=t.device)[:, None, None]
+
+
+def slots_used(live):
+    """1 + the last slot that is live in any tile (0 when none is)."""
+    import torch
+    used = torch.nonzero(live.reshape(-1, live.shape[-1]).any(0))
+    return int(used.max()) + 1 if used.numel() else 0
+
+
+def reset_counts(cr):
+    for k in cr.KERNELS:
+        k.launches = 0
+
+
+def read_counts(cr):
+    return {k.__name__: k.launches for k in cr.KERNELS}
 
 
 def body_scene(assets, params, n, dev, rast, smpl_ops):
@@ -97,6 +219,19 @@ def random_scene(dev):
     far = fv.copy()
     far[..., 2] = 30.0
     return torch.from_numpy(fv).to(dev), torch.from_numpy(far).to(dev)
+
+
+def dense_scene(dev):
+    """3,000 random faces of a few pixels: at cap 4 most 8-px tiles
+    overflow."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(9)
+    xy = rng.uniform(-0.8, 0.8, (2, 3000, 1, 2)) \
+        + rng.uniform(-0.03, 0.03, (2, 3000, 3, 2))
+    z = rng.uniform(1.5, 3.0, (2, 3000, 3, 1))
+    fv = np.concatenate([xy, z], -1).astype(np.float32)
+    return torch.from_numpy(fv).to(dev)
 
 
 def source_image(s):
@@ -140,7 +275,75 @@ def kernel_vs_plain(cr, rast, fv, src_f2pts):
     check(w_err <= W_TOL, f"weights differ by {w_err}")
     check(t_err <= T_TOL, f"flow differs by {t_err}")
     cov = float((fim_k >= 0).float().mean())
-    return cov, w_err, t_err, (verts, fid, srcxy, starts, geo)
+    return cov, w_err, t_err, (verts, fid, srcxy, starts, geo), fim_k
+
+
+def tiles_vs_plain(cr, rast, fv, cap, tile=TILES[0], span=TILES[2]):
+    """zbuffer_tiles and its twin on one scene's slots; returns (kernel
+    fim and wim, max weight error, coverage, slot inputs)."""
+    import torch
+    s = GEOM["s"]
+    packed, cand, valid = rast._tiled_candidates(fv, s, tile, cap, span,
+                                                 rast.DEFAULT_FAR)
+    geo = (s, tile, rast.DEFAULT_NEAR, rast.DEFAULT_FAR)
+    fim_k, wim_k = cr.zbuffer_tiles(packed, cand, valid, *geo)
+    torch.cuda.synchronize()
+    fim_p, wim_p = cr.zbuffer_tiles_plain(packed, cand, valid, *geo)
+    n_bad = int((fim_k != fim_p).sum())
+    check(n_bad == FIM_EXACT, f"tiles fim differs from plain at {n_bad} px")
+    check(bool((wim_k[fim_k < 0] == 0.0).all()), "tiles background != 0")
+    w_err = float((wim_k - wim_p).abs().max())
+    check(w_err <= W_TOL, f"tiles weights differ by {w_err}")
+    cov = float((fim_k >= 0).float().mean())
+    return (fim_k, wim_k), w_err, cov, (packed, cand, valid, geo)
+
+
+def time_tiles(cr, packed, cand, valid, geo):
+    """Median ms of zbuffer_tiles and of its twin on these slots, and the
+    kernel's bound (ms, what bounds it)."""
+    ms = median_ms(lambda: cr.zbuffer_tiles(packed, cand, valid, *geo), 50)
+    plain_ms = median_ms(lambda: cr.zbuffer_tiles_plain(packed, cand, valid,
+                                                        *geo), 5)
+    return ms, plain_ms, bound(*tiles_work(cr, packed, cand, valid, geo[0],
+                                           geo[1]))
+
+
+def profile_request(fn, out_path):
+    """One call of fn under torch.profiler (CPU + CUDA activity): returns
+    (wall ms, summed kernel ms, [(kernel ms, launches, name)] largest
+    first); writes the full key_averages table to out_path. Summed
+    kernel time is None when the profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    out_path.parent.mkdir(exist_ok=True)
+    out_path.write_text(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=60))
+    return wall, (sum(r[0] for r in rows) if rows else None), rows
+
+
+def target_images(n, seed):
+    """n stand-ins for 224² target crops in [-1, 1]: the smooth source
+    pattern at random phases plus a little noise, so HMR's θ differs
+    from frame to frame."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:224, 0:224].astype(np.float32) / 224
+    ph = rng.uniform(0, 2 * np.pi, (n, 3, 1, 1)).astype(np.float32)
+    img = np.stack([np.sin(6.0 * x + ph[:, 0]), np.cos(4.0 * y + ph[:, 1]),
+                    np.sin(5.0 * x * y + ph[:, 2])], -1)
+    img = 0.8 * img + rng.normal(0, 0.05, img.shape).astype(np.float32)
+    return np.clip(img, -1, 1).astype(np.float32)
 
 
 def main():
@@ -149,7 +352,7 @@ def main():
 
     # -- phase 1: the card -------------------------------------------------
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
-    from impersonator_tpu_torch.assets import bench_assets
+    from impersonator_tpu_torch.assets import bench_assets, synthetic_assets
     from impersonator_tpu_torch.config import TestConfig
     from impersonator_tpu_torch.ops import cuda_raster as cr
     from impersonator_tpu_torch.ops import rasterizer as rast
@@ -174,7 +377,6 @@ def main():
     print(f"build: {build_s:.2f} s (nvcc + load) {tag}", flush=True)
 
     # -- phase 3: kernels vs plain twins -----------------------------------
-    torch.backends.cuda.matmul.allow_tf32 = False
     assets = bench_assets()
     params = smpl_ops.SMPLParams.from_assets(assets, dev)
     renderer = SMPLRenderer.create(assets, dev, image_size=GEOM["s"])
@@ -182,15 +384,16 @@ def main():
           f"renderer gate {renderer._bucket_config()}")
     thetas, fv = body_scene(assets, params, 16, dev, rast, smpl_ops)
     src_f2pts = renderer.f2pts_from_f2verts(fv[0:1])
-    cov, w_err, t_err, body_in = kernel_vs_plain(cr, rast, fv, src_f2pts)
+    cov, w_err, t_err, body_in, fim_rows = kernel_vs_plain(cr, rast, fv,
+                                                           src_f2pts)
     check(cov > 0.02, f"body covers {cov:.4f} of the pixels")
     print(f"kernels vs plain, 16 bodies 256^2 ({assets.nf} faces): fim "
           f"equal, coverage {cov:.4f}, max |dw| {w_err}, max |dT| {t_err}")
     fv_rand, fv_far = random_scene(dev)
     src_rand = fv_rand[..., :2]
-    cov_r, w_r, t_r, _ = kernel_vs_plain(cr, rast, fv_rand, src_rand)
+    cov_r, w_r, t_r, _, _ = kernel_vs_plain(cr, rast, fv_rand, src_rand)
     check(cov_r > 0.3, f"random scene covers {cov_r}")
-    cov_f, w_f, t_f, _ = kernel_vs_plain(cr, rast, fv_far, src_rand)
+    cov_f, w_f, t_f, _, _ = kernel_vs_plain(cr, rast, fv_far, src_rand)
     check(cov_f == 0.0, f"far scene covers {cov_f}")
     print(f"kernels vs plain, random+oversized: fim equal, max |dw| {w_r}, "
           f"max |dT| {t_r}; behind far: empty")
@@ -210,9 +413,93 @@ def main():
             median_ms(lambda: cr.zbuffer_bucket_flow_plain(
                 verts, fid, srcxy, starts, *geo), 5)),
     }
+    # bounds: the operations these inputs need (OPS_TEST per pair of the
+    # tiles' candidate ranges, OPS_HIT per pair inside its face), each
+    # input read once, each output written once
+    ops = bucket_ops(cr, verts, starts, GEOM["s"], GEOM["tile"],
+                     GEOM["span"])
+    n_px = verts.shape[0] * GEOM["s"] ** 2
+    bounds = {
+        "zbuffer_bucket_rows": bound(ops, nbytes(verts, fid, starts)
+                                     + 16 * n_px),
+        "zbuffer_bucket_flow": bound(ops, nbytes(verts, fid, srcxy, starts)
+                                     + 12 * n_px),
+    }
+
+    # -- phase 3b: zbuffer_tiles vs its plain twin -------------------------
+    check(renderer.tile_params() == TILES,
+          f"renderer tile_params {renderer.tile_params()}")
+    tile8, cap, tspan = TILES
+    (fim_tk, _), err_tb, cov_tb, tiles_in = tiles_vs_plain(cr, rast, fv,
+                                                           cap)
+    n_diff = int((fim_tk != fim_rows).sum())
+    check(n_diff == 0, f"tiles fim differs from rows fim at {n_diff} px")
+    stats = {k: v.tolist() for k, v in renderer.tile_stats(fv).items()}
+    check(max(stats["dropped_pairs"]) == 0, f"tile stats {stats}")
+    print(f"zbuffer_tiles vs plain, 16 bodies 256^2 (tile {tile8}, cap "
+          f"{cap}, span {tspan}): fim equal, equal to zbuffer_bucket_rows' "
+          f"fim, coverage {cov_tb:.4f}, max |dw| {err_tb}; tile_stats "
+          f"max_tile_occupancy {stats['max_tile_occupancy']}, "
+          f"dropped_pairs {stats['dropped_pairs']}, oversized_faces "
+          f"{stats['oversized_faces']}")
+    _, err_tr, cov_tr, _ = tiles_vs_plain(cr, rast, fv_rand, cap)
+    fv_dense = dense_scene(dev)
+    _, err_tz, cov_tz, _ = tiles_vs_plain(cr, rast, fv_dense, 4)
+    over = {k: v.tolist() for k, v in rast.raster_tile_stats(
+        fv_dense, GEOM["s"], rast.DEFAULT_FAR, tile8, 4, tspan).items()}
+    check(min(over["dropped_pairs"]) > 0 and cov_tz > 0.05,
+          f"cap 4: coverage {cov_tz}, stats {over}")
+    _, err_tf, cov_tf, _ = tiles_vs_plain(cr, rast, fv_far, cap)
+    check(cov_tr > 0.3 and cov_tf == 0.0,
+          f"tiles coverage random {cov_tr}, far {cov_tf}")
+    print(f"zbuffer_tiles vs plain, random+oversized: fim equal, max |dw| "
+          f"{err_tr}; 3,000 small faces at cap 4: fim equal, max |dw| "
+          f"{err_tz}, dropped_pairs {over['dropped_pairs']}; behind far: "
+          f"empty", flush=True)
+    errs["zbuffer_tiles"] = max(err_tb, err_tr, err_tz, err_tf)
     for name, (ms, plain_ms) in timing.items():
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"batch 16 at 256^2 {tag}", flush=True)
+        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), batch 16 at "
+              f"256^2 {tag}", flush=True)
+    ms_b, plain_b, bound_b = time_tiles(cr, *tiles_in)
+    print(f"zbuffer_tiles on the 16 bodies ({assets.nf} faces, not its "
+          f"path): kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms, bound "
+          f"{bound_b[0]:.4f} ms ({bound_b[1]}), batch 16 at 256^2 {tag}",
+          flush=True)
+
+    # -- phase 3c: the renderer's tiled route (nf > 60,000) ----------------
+    big = synthetic_assets(rings=24, segments=60)
+    r_big = SMPLRenderer.create(big, dev, image_size=GEOM["s"])
+    check(r_big.raster_route() == "tiled",
+          f"{big.nf} faces route {r_big.raster_route()}")
+    p_big = smpl_ops.SMPLParams.from_assets(big, dev)
+    d_big = smpl_ops.get_details(p_big, torch.from_numpy(thetas).to(dev),
+                                 big.parents)
+    reset_counts(cr)
+    f2v_big, fim_big, wim_big = r_big.render_fim_wim(d_big["cam"],
+                                                     d_big["verts"])
+    torch.cuda.synchronize()
+    tiled_launches = read_counts(cr)
+    check(tiled_launches["zbuffer_tiles"] >= 1,
+          f"tiled route launches {tiled_launches}")
+    tb, tcap, tsp = r_big.tile_params()
+    (fim_bk, wim_bk), err_big, cov_big, big_in = tiles_vs_plain(
+        cr, rast, f2v_big, tcap, tb, tsp)
+    check(torch.equal(fim_big, fim_bk) and torch.equal(wim_big, wim_bk),
+          "tiled route differs from zbuffer_tiles on its slots")
+    errs["zbuffer_tiles"] = max(errs["zbuffer_tiles"], err_big)
+    ms_t, plain_t, bound_t = time_tiles(cr, *big_in)
+    timing["zbuffer_tiles"], bounds["zbuffer_tiles"] = (ms_t, plain_t), bound_t
+    check(cov_big > 0.02, f"63k-face bodies cover {cov_big}")
+    st_big = {k: v.tolist() for k, v in r_big.tile_stats(f2v_big).items()}
+    print(f"tiled route: {big.nf} faces, 16 poses, tile_params "
+          f"{r_big.tile_params()}, launches {tiled_launches}, fim equal to "
+          f"the twin's, max |dw| {err_big}, coverage {cov_big:.4f}; "
+          f"tile_stats max_tile_occupancy {st_big['max_tile_occupancy']}, "
+          f"dropped_pairs {st_big['dropped_pairs']}", flush=True)
+    print(f"zbuffer_tiles on its path ({big.nf} faces): kernel {ms_t:.4f} "
+          f"ms, plain {plain_t:.4f} ms, bound {bound_t[0]:.4f} ms "
+          f"({bound_t[1]}), batch 16 at 256^2 {tag}", flush=True)
 
     # -- phase 4: the slice at full width ----------------------------------
     cfg = TestConfig(image_size=GEOM["s"], repeat_num=6)
@@ -221,8 +508,7 @@ def main():
     src_img = source_image(GEOM["s"])
     req_thetas = np.tile(thetas[0], (64, 1))
     req_thetas[:, 3:75] += rng.normal(0, 0.05, (64, 72)).astype(np.float32)
-    for k in cr.KERNELS:
-        k.launches = 0
+    reset_counts(cr)
     t0 = time.perf_counter()
     src_info = imit.personalize(src_img, src_smpl=thetas[0])
     torch.cuda.synchronize()
@@ -234,7 +520,7 @@ def main():
         preds = imit.inference_by_smpls(req_thetas, batch=16)
         torch.cuda.synchronize()
         req_s.append(time.perf_counter() - t0)
-    launches = {k.__name__: k.launches for k in cr.KERNELS}
+    launches = read_counts(cr)
     check(rows_after_pers >= 1, "personalize launched no rows kernel")
     check(launches["zbuffer_bucket_flow"] == 3 * 4,
           f"flow kernel launches {launches['zbuffer_bucket_flow']} != 12")
@@ -250,8 +536,46 @@ def main():
     print(f"slice: launches {launches}, source coverage {src_cov:.4f}",
           flush=True)
 
+    # -- phase 4b: the image-driven leg at full width -----------------------
+    imit_h = imi.Imitator(cfg, assets=assets, device=dev)   # HMR included
+    tgt_imgs = torch.from_numpy(target_images(64, 1)).to(dev)
+    imit_h.regress_smpl(tgt_imgs[:16])       # cuDNN's first-use set-up
+    torch.cuda.synchronize()
+    reset_counts(cr)
+    t0 = time.perf_counter()
+    src_h = imit_h.personalize(src_img)      # θ from HMR
+    torch.cuda.synchronize()
+    pers_h_s = time.perf_counter() - t0
+    rows_after_pers_h = cr.zbuffer_bucket_rows.launches
+    req_h = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        preds_h = imit_h.inference(tgt_imgs, batch=16)
+        torch.cuda.synchronize()
+        req_h.append(time.perf_counter() - t0)
+    launches_h = read_counts(cr)
+    check(rows_after_pers_h >= 1, "personalize(src_img) launched no rows")
+    check(launches_h["zbuffer_bucket_flow"] == 3 * 4,
+          f"full leg flow launches {launches_h['zbuffer_bucket_flow']}")
+    check(tuple(preds_h.shape) == (64, GEOM["s"], GEOM["s"], 3),
+          f"full leg preds shape {tuple(preds_h.shape)}")
+    check(bool(torch.isfinite(preds_h).all()), "non-finite full leg preds")
+    src_cov_h = float((src_h["fim"] >= 0).float().mean())
+    check(src_cov_h > 0.02, f"HMR source body covers {src_cov_h}")
+    mean_theta = torch.from_numpy(assets.mean_theta).to(dev)
+    dev_theta = float((src_h["theta"] - mean_theta).abs().max())
+    hmr_ms = median_ms(lambda: imit_h.regress_smpl(tgt_imgs[:16]), 20)
+    fps_h = 64 / sorted(req_h)[1]
+    print(f"full leg: personalize(src_img) {pers_h_s:.3f} s, requests "
+          f"{[round(x, 4) for x in req_h]} s for 64 frames, median "
+          f"{fps_h:.1f} frames/s at batch 16 (HMR fp32 + generator bf16), "
+          f"256^2; HMR {hmr_ms:.4f} ms per batch of 16 at 224^2 {tag}")
+    print(f"full leg: launches {launches_h}, source coverage "
+          f"{src_cov_h:.4f}, source max |theta - mean_theta| {dev_theta:.4f}",
+          flush=True)
+
     # -- phase 5: fp32 card vs CPU -----------------------------------------
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False     # the fp32 generator's convs
     cfg32 = TestConfig(image_size=GEOM["s"], repeat_num=6,
                        compute_dtype="float32")
     cpu = torch.device("cpu")
@@ -310,14 +634,74 @@ def main():
           f"{e2e_far} of {e2e_diff[..., 0].numel()} px above {PRED_TOL}",
           flush=True)
 
+    # -- phase 5b: HMR card vs CPU ------------------------------------------
+    # both TF32 flags on for the process: HMR keeps its own convs and
+    # matmuls in full float32; its encoder called outside that scope shows
+    # what TF32 would do to the features
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    hmr_g = imit_h.nets.hmr
+    hmr_cpu = copy.deepcopy(hmr_g).cpu()
+    x = tgt_imgs[:4]
+    with torch.no_grad():
+        ft_g = hmr_g.features(x).cpu()
+        ft_tf32 = hmr_g.resnet(x.permute(0, 3, 1, 2)).cpu()
+        ft_c = hmr_cpu.features(x.cpu())
+        th_c = hmr_cpu(x.cpu())
+    th_g = imit_h.regress_smpl(x).cpu()
+    ft_scale = float(ft_c.abs().max())
+    ft_rel = float((ft_g - ft_c).abs().max()) / ft_scale
+    tf32_rel = float((ft_tf32 - ft_c).abs().max()) / ft_scale
+    th_err = float((th_g - th_c).abs().max())
+    print(f"HMR card vs CPU, 4 images 224^2, process TF32 flags on: "
+          f"features max |df| / max |f| {ft_rel:.3e} (bound {FEAT_RTOL}); "
+          f"the encoder outside HMR's full-fp32 scope (TF32) "
+          f"{tf32_rel:.3e}; max |dtheta| {th_err} (bound {THETA_TOL})",
+          flush=True)
+    check(ft_rel <= FEAT_RTOL, f"HMR features card vs CPU {ft_rel}")
+    check(tf32_rel > FEAT_RTOL, f"TF32 features pass the check: {tf32_rel}")
+    check(th_err <= THETA_TOL, f"HMR theta card vs CPU {th_err}")
+    torch.backends.cuda.matmul.allow_tf32 = False   # PyTorch's defaults
+
+    # -- phase 6: where a full-leg request's device time goes --------------
+    wall, kern, rows = profile_request(
+        lambda: imit_h.inference(tgt_imgs, batch=16),
+        Path("chiprun_out") / "profile_full_leg.txt")
+    if kern is None:
+        print("profile: the profiler saw no device activity; kernel time "
+              "not measured")
+    else:
+        hmr_wall, hmr_kern, _ = profile_request(
+            lambda: imit_h.regress_smpl(tgt_imgs[:16]),
+            Path("chiprun_out") / "profile_hmr.txt")
+        print(f"profile, one 64-frame full-leg request at batch 16: wall "
+              f"{wall:.2f} ms (profiler on), summed kernel time "
+              f"{kern:.2f} ms, device idle {1 - kern / wall:.3f} of the "
+              f"wall; HMR alone {hmr_kern:.2f} ms of kernels per batch of "
+              f"16 {tag}")
+        for ms, n, name in rows[:12]:
+            print(f"profile: {ms:9.3f} ms {n:5d} x {name[:90]}")
+    sys.stdout.flush()
+
+    # launches: each kernel's count over the path that carries it — the
+    # full leg (4b) for the bucket kernels, the tiled route (3c) for
+    # zbuffer_tiles
+    path_launches = {**launches_h,
+                     "zbuffer_tiles": tiled_launches["zbuffer_tiles"]}
     record = {"kernels": [
         {"name": name, "route": "cuda",
-         "source": "impersonator_tpu_torch/csrc/zbuffer_bucket.cu",
+         "source": f"impersonator_tpu_torch/csrc/{src}",
          "replaces": f"impersonator_tpu/ops/pallas_raster.py:{line}",
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": timing[name][0], "plain_ms": timing[name][1]}
-        for name, line in (("zbuffer_bucket_rows", 365),
-                           ("zbuffer_bucket_flow", 413))]}
+         "launches": path_launches[name], "max_abs_err": errs[name],
+         "ms": timing[name][0], "plain_ms": timing[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": None}
+        for name, src, line in (
+            ("zbuffer_bucket_rows", "zbuffer_bucket.cu", 365),
+            ("zbuffer_bucket_flow", "zbuffer_bucket.cu", 413),
+            ("zbuffer_tiles", "zbuffer_tiles.cu", 146))]}
+    check(all(k["launches"] > 0 for k in record["kernels"]),
+          f"a kernel never launched on its path: {path_launches}")
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,22 @@
-"""The bucket z-buffer kernels: CUDA wrappers, their plain PyTorch twins
-and the nvcc build.
+"""The z-buffer kernels: CUDA wrappers, their plain PyTorch twins and
+the nvcc build.
 
-Counterpart of ``impersonator_tpu/ops/pallas_raster.py``
-(``zbuffer_bucket_rows`` :365, ``zbuffer_bucket_flow`` :413). The
-kernels live in ``csrc/zbuffer_bucket.cu`` (one template, ``FLOW`` as
-its flag) and are compiled for ``sm_90a`` by nvcc at first use into
-``_build/``, then loaded with ctypes.
+Counterparts of the Pallas TPU kernels of
+``impersonator_tpu/ops/pallas_raster.py``:
 
-Inputs (the layout ``ops.rasterizer._bucket_sort`` emits):
+* :func:`zbuffer_bucket_rows` (:365) and :func:`zbuffer_bucket_flow`
+  (:413) — ``csrc/zbuffer_bucket.cu``, one template with ``FLOW`` as its
+  flag, over the bucket-sorted face table of
+  ``ops.rasterizer._bucket_sort``;
+* :func:`zbuffer_tiles` (:146) — ``csrc/zbuffer_tiles.cu``, the
+  fixed-slot z-buffer over the per-tile candidate slots of
+  ``ops.rasterizer._tiled_candidates``.
+
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by nvcc at first use into
+``_build/`` (one shared library per source, all sources at once) and
+loaded with ctypes.
+
+Bucket inputs (the layout ``_bucket_sort`` emits):
 
 * ``verts``  (B, nf, 9) float32, bucket-sorted faces, xyz per vertex;
 * ``fid``    (B, nf) int32, the original face id of each sorted face;
@@ -16,14 +25,18 @@ Inputs (the layout ``ops.rasterizer._bucket_sort`` emits):
 * ``starts`` (B, T+2) int32 bucket starts: T = (s/tile)², entry T starts
   the oversized range and entry T+1 is the end sentinel.
 
+Fixed-slot inputs: ``packed`` (B, nf, 9) float32 face verts in face-id
+order, ``cand`` and ``valid`` (B, T, slots) int32 (a slot's face id, and
+whether the slot is live).
+
 Outputs are already in image layout with the raster's vertical flip
 applied: fim (B, S, S) int32 (-1 on background) and wim (B, S, S, 3)
 (0 on background) or the flow T (B, S, S, 2) (-2 on background).
 
 Each wrapper launches its kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it runs the plain twin, which takes the same
-inputs, walks the same candidate ranges with the same float operations
-in the same order and the same tie-break, and so returns the same bits.
+inputs, walks the same candidates with the same float operations in the
+same order and the same tie-break, and so returns the same bits.
 ``launches`` on each wrapper counts kernel launches.
 """
 
@@ -35,15 +48,31 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "zbuffer_bucket.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
               "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C entry points of each source and their argument types
+SYMBOLS = {
+    "zbuffer_bucket.cu": {
+        "zbuffer_bucket_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                _F, _P],
+        "zbuffer_bucket_flow": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _F, _F, _P],
+    },
+    "zbuffer_tiles.cu": {
+        "zbuffer_tiles": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                          _P],
+    },
+}
 
 # elements of one (batch, tile, pixel, candidate) block the plain twins
 # evaluate at once
@@ -57,7 +86,7 @@ class _Library:
         self.lib = None
         self.build_log = ""
 
-    def get(self) -> ctypes.CDLL:
+    def get(self) -> SimpleNamespace:
         if self.lib is None:
             self.lib, self.build_log = _build_and_load()
         return self.lib
@@ -79,33 +108,53 @@ def _nvcc() -> str:
 
 
 def _build_and_load():
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Compile every csrc/*.cu not yet built (one nvcc each, all started
+    together), load each library and bind its symbols."""
+    sources = sorted(CSRC.glob("*.cu"))
+    unknown = [src.name for src in sources if src.name not in SYMBOLS]
+    if unknown:
+        raise RuntimeError(f"no symbol table for {unknown}")
     BUILD_DIR.mkdir(exist_ok=True)
-    out = BUILD_DIR / f"zbuffer_bucket_{tag}.so"
-    log = ""
-    if not out.exists():
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+    outs, running = {}, []
+    for src in sources:
+        tag = hashlib.sha256(src.read_bytes()
+                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        out = BUILD_DIR / f"{src.stem}_{tag}.so"
+        outs[src.name] = out
+        if not out.exists():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            log = tmp.with_suffix(".log")
+            with open(log, "w") as fh:
+                proc = subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                    stdout=fh, stderr=subprocess.STDOUT)
+            running.append((src, tmp, out, log, proc))
+    logs, failed = [], []
+    for src, tmp, out, log_path, proc in running:
+        proc.wait()
+        log = log_path.read_text()
+        log_path.unlink()
+        logs.append(log)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{log}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.zbuffer_bucket_rows.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, p]
-    lib.zbuffer_bucket_rows.restype = ctypes.c_int
-    lib.zbuffer_bucket_flow.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f,
-                                        f, p]
-    lib.zbuffer_bucket_flow.restype = ctypes.c_int
-    return lib, log
+            failed.append(f"nvcc failed on {src}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    lib = SimpleNamespace()
+    for name, out in outs.items():
+        so = ctypes.CDLL(str(out))
+        for sym, argtypes in SYMBOLS[name].items():
+            fn = getattr(so, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            setattr(lib, sym, fn)
+    return lib, "".join(logs)
 
 
 def build() -> str:
     """Compile (if needed) and load the kernels; returns nvcc's output of
-    this process's build ('' when the library was already built)."""
+    this process's builds ('' when every library was already built)."""
     _LIBRARY.get()
     return _LIBRARY.build_log
 
@@ -192,9 +241,52 @@ def zbuffer_bucket_flow(verts, fid, srcxy, starts, s: int, tile: int,
     return fim, flow
 
 
+def _check_tiles(packed, cand, valid, s, tile):
+    dev = packed.device
+    b, nf = packed.shape[0], packed.shape[1]
+    if s % tile:
+        raise ValueError(f"tile {tile} must divide s={s}")
+    g = s // tile
+    slots = cand.shape[-1]
+    for t, shape, dtype in [(packed, (b, nf, 9), torch.float32),
+                            (cand, (b, g * g, slots), torch.int32),
+                            (valid, (b, g * g, slots), torch.int32)]:
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"expected {shape} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    return b, nf, slots
+
+
+def zbuffer_tiles(packed, cand, valid, s: int, tile: int, near: float,
+                  far: float):
+    """Fixed-slot z-buffer -> (fim (B,S,S) int32, wim (B,S,S,3) float32).
+    The winner is the lexicographic (z, slot) minimum over live slots."""
+    b, nf, slots = _check_tiles(packed, cand, valid, s, tile)
+    if packed.device.type == "cpu":
+        return zbuffer_tiles_plain(packed, cand, valid, s, tile, near, far)
+    if packed.device.type != "cuda":
+        raise ValueError(f"no kernel for device {packed.device}")
+    lib = _LIBRARY.get()
+    fim = torch.empty((b, s, s), dtype=torch.int32, device=packed.device)
+    wim = torch.empty((b, s, s, 3), dtype=torch.float32, device=packed.device)
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.zbuffer_tiles(
+            _ptr(packed), _ptr(cand), _ptr(valid), _ptr(fim), _ptr(wim), b,
+            nf, s, tile, slots, near, far, ctypes.c_void_p(stream))
+    _raise_on(err, "zbuffer_tiles")
+    zbuffer_tiles.launches += 1
+    return fim, wim
+
+
 zbuffer_bucket_rows.launches = 0
 zbuffer_bucket_flow.launches = 0
-KERNELS = (zbuffer_bucket_rows, zbuffer_bucket_flow)
+zbuffer_tiles.launches = 0
+KERNELS = (zbuffer_bucket_rows, zbuffer_bucket_flow, zbuffer_tiles)
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +328,65 @@ def _tile_candidates(starts, g, span):
     return pos
 
 
+def _tile_pixels(s, tile, dev):
+    """Pixel coordinates of every tile, (1, T, P, 1) each, row-major
+    inside a tile: integer xi, yi and the pixel centres xp, yp."""
+    g = s // tile
+    t = torch.arange(g * g, device=dev)
+    p = torch.arange(tile * tile, device=dev)
+    yi = ((t // g)[:, None] * tile + p // tile).float()[None, :, :, None]
+    xi = ((t % g)[:, None] * tile + p % tile).float()[None, :, :, None]
+    sf = float(s)
+    xp = (2.0 * xi + 1.0 - sf) / sf
+    yp = (2.0 * yi + 1.0 - sf) / sf
+    return xi, yi, xp, yp
+
+
+def _pair_weights(d, xi, yi, xp, yp, sf):
+    """The per-(pixel, candidate) arithmetic both Pallas bodies share, in
+    their float order: d (B, T, C, 9) gathered face verts, pixel
+    coordinates (1, T, P, 1) -> the inside test at the pixel centre, the
+    three clipped barycentric weights at the integer pixel (B, T, P, C),
+    and the vertex depths (B, T, 1, C)."""
+    f = [d[..., k][:, :, None, :] for k in range(9)]
+    fx0, fy0, fz0, fx1, fy1, fz1, fx2, fy2, fz2 = f
+
+    p0x = 0.5 * (fx0 * sf + sf - 1.0)
+    p0y = 0.5 * (fy0 * sf + sf - 1.0)
+    p1x = 0.5 * (fx1 * sf + sf - 1.0)
+    p1y = 0.5 * (fy1 * sf + sf - 1.0)
+    p2x = 0.5 * (fx2 * sf + sf - 1.0)
+    p2y = 0.5 * (fy2 * sf + sf - 1.0)
+    denom = (p2x * (p0y - p1y) + p0x * (p1y - p2y)
+             + p1x * (p2y - p0y))
+    rden = 1.0 / torch.where(denom == 0.0, 1.0, denom)
+
+    t0 = (yp - fy0) * (fx1 - fx0) - (xp - fx0) * (fy1 - fy0)
+    t1 = (yp - fy1) * (fx2 - fx1) - (xp - fx1) * (fy2 - fy1)
+    t2 = (yp - fy2) * (fx0 - fx2) - (xp - fx2) * (fy0 - fy2)
+    inside = (t0 >= 0) & (t1 >= 0) & (t2 >= 0)
+
+    w0 = torch.clamp(((p1y - p2y) * rden) * xi
+                     + ((p2x - p1x) * rden) * yi
+                     + (p1x * p2y - p2x * p1y) * rden, 0.0, 1.0)
+    w1 = torch.clamp(((p2y - p0y) * rden) * xi
+                     + ((p0x - p2x) * rden) * yi
+                     + (p2x * p0y - p0x * p2y) * rden, 0.0, 1.0)
+    w2 = torch.clamp(((p0y - p1y) * rden) * xi
+                     + ((p1x - p0x) * rden) * yi
+                     + (p0x * p1y - p1x * p0y) * rden, 0.0, 1.0)
+    return inside, w0, w1, w2, (fz0, fz1, fz2)
+
+
+def _untile(a, s, tile):
+    """(B, T, P[, C]) per-tile maps -> (B, S, S[, C]) image layout with
+    the raster's vertical flip."""
+    b, g = a.shape[0], s // tile
+    a = a.reshape((b, g, g, tile, tile) + a.shape[3:])
+    a = a.transpose(2, 3).reshape((b, s, s) + a.shape[5:])
+    return a.flip(1).contiguous()
+
+
 def _zbuffer_plain(verts, fid, srcxy, starts, s, tile, span, near, far):
     """Shared body of the plain twins; emits (fim, (B,S,S,C)) with C=3
     weights (srcxy None) or C=2 flow."""
@@ -247,14 +398,8 @@ def _zbuffer_plain(verts, fid, srcxy, starts, s, tile, span, near, far):
     pos = _tile_candidates(starts, g, span)
     m = pos.shape[-1]
 
-    t = torch.arange(n_tiles, device=dev)
-    p = torch.arange(npx, device=dev)
-    # pixel coordinates (1, T, P, 1), row-major inside each tile
-    yi = ((t // g)[:, None] * tile + p // tile).float()[None, :, :, None]
-    xi = ((t % g)[:, None] * tile + p % tile).float()[None, :, :, None]
+    xi, yi, xp, yp = _tile_pixels(s, tile, dev)
     sf = float(s)
-    xp = (2.0 * xi + 1.0 - sf) / sf
-    yp = (2.0 * yi + 1.0 - sf) / sf
 
     bg = -2.0 if flow else 0.0
     best_z = torch.full((b, n_tiles, npx), far, device=dev)
@@ -270,33 +415,8 @@ def _zbuffer_plain(verts, fid, srcxy, starts, s, tile, span, near, far):
         slot = slot.clamp(min=0)
         d = verts[bidx, slot]                            # (B, T, C, 9)
         ids = fid[bidx, slot][:, :, None, :]             # (B, T, 1, C)
-        f = [d[..., k][:, :, None, :] for k in range(9)]
-        fx0, fy0, fz0, fx1, fy1, fz1, fx2, fy2, fz2 = f
-
-        p0x = 0.5 * (fx0 * sf + sf - 1.0)
-        p0y = 0.5 * (fy0 * sf + sf - 1.0)
-        p1x = 0.5 * (fx1 * sf + sf - 1.0)
-        p1y = 0.5 * (fy1 * sf + sf - 1.0)
-        p2x = 0.5 * (fx2 * sf + sf - 1.0)
-        p2y = 0.5 * (fy2 * sf + sf - 1.0)
-        denom = (p2x * (p0y - p1y) + p0x * (p1y - p2y)
-                 + p1x * (p2y - p0y))
-        rden = 1.0 / torch.where(denom == 0.0, 1.0, denom)
-
-        t0 = (yp - fy0) * (fx1 - fx0) - (xp - fx0) * (fy1 - fy0)
-        t1 = (yp - fy1) * (fx2 - fx1) - (xp - fx1) * (fy2 - fy1)
-        t2 = (yp - fy2) * (fx0 - fx2) - (xp - fx2) * (fy0 - fy2)
-        inside = (t0 >= 0) & (t1 >= 0) & (t2 >= 0)
-
-        w0 = torch.clamp(((p1y - p2y) * rden) * xi
-                         + ((p2x - p1x) * rden) * yi
-                         + (p1x * p2y - p2x * p1y) * rden, 0.0, 1.0)
-        w1 = torch.clamp(((p2y - p0y) * rden) * xi
-                         + ((p0x - p2x) * rden) * yi
-                         + (p2x * p0y - p0x * p2y) * rden, 0.0, 1.0)
-        w2 = torch.clamp(((p0y - p1y) * rden) * xi
-                         + ((p1x - p0x) * rden) * yi
-                         + (p0x * p1y - p1x * p0y) * rden, 0.0, 1.0)
+        inside, w0, w1, w2, (fz0, fz1, fz2) = _pair_weights(
+            d, xi, yi, xp, yp, sf)
         wsum = w0 + w1 + w2
         rws = 1.0 / torch.where(wsum == 0.0, 1.0, wsum)
         w0, w1, w2 = w0 * rws, w1 * rws, w2 * rws
@@ -330,13 +450,8 @@ def _zbuffer_plain(verts, fid, srcxy, starts, s, tile, span, near, far):
         best_i = torch.where(better, li_id, best_i)
         best_z = torch.where(better, lz, best_z)
 
-    def untile(a):
-        a = a.reshape((b, g, g, tile, tile) + a.shape[3:])
-        a = a.transpose(2, 3).reshape((b, s, s) + a.shape[5:])
-        return a.flip(1).contiguous()
-
     out = torch.stack(best[:2] if flow else best, -1)
-    return untile(best_i), untile(out)
+    return _untile(best_i, s, tile), _untile(out, s, tile)
 
 
 def zbuffer_bucket_rows_plain(verts, fid, starts, s: int, tile: int,
@@ -349,3 +464,57 @@ def zbuffer_bucket_flow_plain(verts, fid, srcxy, starts, s: int, tile: int,
                               span: int, near: float, far: float):
     """Plain PyTorch twin of :func:`zbuffer_bucket_flow`."""
     return _zbuffer_plain(verts, fid, srcxy, starts, s, tile, span, near, far)
+
+
+def zbuffer_tiles_plain(packed, cand, valid, s: int, tile: int, near: float,
+                        far: float):
+    """Plain PyTorch twin of :func:`zbuffer_tiles`: the Pallas body's
+    arithmetic (divisions by wsum and by each vertex depth) over every
+    slot up to the last live one, chunk by chunk, lowest slot on ties."""
+    b, nf = packed.shape[0], packed.shape[1]
+    dev = packed.device
+    g = s // tile
+    n_tiles, npx = g * g, tile * tile
+    live = (valid != 0) & (cand >= 0) & (cand < nf)
+    used = torch.nonzero(live.reshape(-1, live.shape[-1]).any(0))
+    m = int(used.max()) + 1 if used.numel() else 0
+    xi, yi, xp, yp = _tile_pixels(s, tile, dev)
+    sf = float(s)
+
+    best_z = torch.full((b, n_tiles, npx), far, device=dev)
+    best_i = torch.full((b, n_tiles, npx), -1, dtype=torch.int32, device=dev)
+    best_w = torch.zeros((b, n_tiles, npx, 3), device=dev)
+    bidx = torch.arange(b, device=dev)[:, None, None]
+    big = torch.iinfo(torch.int32).max
+    chunk = max(1, _PLAIN_BLOCK // max(1, b * n_tiles * npx))
+    for c0 in range(0, m, chunk):
+        ids = cand[..., c0:c0 + chunk]                  # (B, T, C)
+        ok = live[..., c0:c0 + chunk][:, :, None, :]
+        d = packed[bidx, ids.clamp(0, nf - 1).long()]   # (B, T, C, 9)
+        inside, w0, w1, w2, (fz0, fz1, fz2) = _pair_weights(
+            d, xi, yi, xp, yp, sf)
+        wsum = w0 + w1 + w2
+        wsum = torch.where(wsum == 0.0, 1.0, wsum)
+        w0, w1, w2 = w0 / wsum, w1 / wsum, w2 / wsum
+        inv_z = w0 / fz0 + w1 / fz1 + w2 / fz2
+        zp = 1.0 / inv_z
+        valid_px = inside & ok & (zp > near) & (zp < far)
+        zp = torch.where(valid_px, zp, far)
+
+        # chunk winner: min z, then the lowest slot
+        lz = zp.amin(-1)
+        lane = torch.arange(zp.shape[-1], device=dev)
+        li = torch.where(zp == lz[..., None], lane, big).amin(-1)
+        sel = lane == li[..., None]
+
+        def pick(v):
+            return torch.where(sel, v, 0.0).sum(-1)
+
+        lid = torch.where(sel, ids[:, :, None, :], 0).sum(-1).int()
+        better = lz < best_z
+        best_w = torch.where(better[..., None],
+                             torch.stack([pick(w0), pick(w1), pick(w2)], -1),
+                             best_w)
+        best_i = torch.where(better, lid, best_i)
+        best_z = torch.where(better, lz, best_z)
+    return _untile(best_i, s, tile), _untile(best_w, s, tile)

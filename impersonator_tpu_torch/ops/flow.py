@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from impersonator_tpu_torch.utils.precision import full_fp32
+
 BG_FLOW = -2.0  # background flow: outside [-1, 1], so grid_sample reads 0
 
 
@@ -20,7 +22,8 @@ def correspondence_flow(src_f2pts, dst_fim, dst_wim):
     src = src_f2pts.expand(b, *src_f2pts.shape[1:])
     gathered = src[torch.arange(b, device=idx.device)[:, None], idx]
     gathered = gathered.reshape(b, h, w, 3, 2)              # (B, H, W, 3, 2)
-    t = torch.einsum("bhwk,bhwkc->bhwc", dst_wim, gathered)
+    with full_fp32():
+        t = torch.einsum("bhwk,bhwkc->bhwc", dst_wim, gathered)
     return torch.where(covered[..., None], t, BG_FLOW)
 
 

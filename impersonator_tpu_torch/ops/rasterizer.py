@@ -9,7 +9,11 @@ or the fused correspondence flow. Torch port of
   ``(key << shift) | fid`` int32 sort, bucket starts;
 * :func:`rasterize_fim_wim_bucket` (:329) and
   :func:`rasterize_flow_bucket` (:470) — the work-efficient path over the
-  sorted table, through the kernels of :mod:`.cuda_raster`.
+  sorted table, through the kernels of :mod:`.cuda_raster`;
+* :func:`rasterize_fim_wim_tiled` (:544) — the fixed-slot path: up to
+  ``cap`` candidates per tile from one ``(tile·nf + fid)`` pair sort,
+  plus 16 oversized-face slots, through ``cuda_raster.zbuffer_tiles``;
+  :func:`raster_tile_stats` (:251) counts what its cap drops.
 
 The rasterizer is non-differentiable; callers run it under no_grad.
 Semantics (cull test, pixel-centre inside test, clipped renormalised
@@ -121,17 +125,11 @@ def rasterize_fim_wim(face_verts, image_size: int = 256,
     return fim, wim
 
 
-def _bucket_sort(face_verts, s: int, tile: int, span: int, far: float):
-    """Shared sort prefix of the bucket rasterizers.
-
-    Returns (verts (B, nf, 9) float32 sorted by bucket key, fid (B, nf)
-    int32 original face ids in that order, starts (B, T+2) int32 bucket
-    starts: entry T = oversized bucket, entry T+1 = start of the culled
-    faces, order (B, nf) int64 = fid)."""
-    b, nf = face_verts.shape[0], face_verts.shape[1]
-    dev = face_verts.device
+def _cull_and_tiles(face_verts, s: int, tile: int, far: float):
+    """Per face (B, nf): whether it can cover a pixel (front-facing, in
+    front of far, its pixel-centre bbox on screen), and the tile range
+    of that bbox, clamped to the grid: (base, tx0, tx1, ty0, ty1)."""
     g = s // tile
-    n_tiles = g * g
     xv, yv, zv = face_verts[..., 0], face_verts[..., 1], face_verts[..., 2]
     front = _face_front(xv, yv)
 
@@ -149,7 +147,21 @@ def _bucket_sort(face_verts, s: int, tile: int, span: int, far: float):
     def to_tile(v):
         return torch.div(v, tile, rounding_mode="floor").clamp(0, g - 1)
 
-    txa, txe, tya, tye = to_tile(xi0), to_tile(xi1), to_tile(yi0), to_tile(yi1)
+    return base, to_tile(xi0), to_tile(xi1), to_tile(yi0), to_tile(yi1)
+
+
+def _bucket_sort(face_verts, s: int, tile: int, span: int, far: float):
+    """Shared sort prefix of the bucket rasterizers.
+
+    Returns (verts (B, nf, 9) float32 sorted by bucket key, fid (B, nf)
+    int32 original face ids in that order, starts (B, T+2) int32 bucket
+    starts: entry T = oversized bucket, entry T+1 = start of the culled
+    faces, order (B, nf) int64 = fid)."""
+    b, nf = face_verts.shape[0], face_verts.shape[1]
+    dev = face_verts.device
+    g = s // tile
+    n_tiles = g * g
+    base, txa, txe, tya, tye = _cull_and_tiles(face_verts, s, tile, far)
     oversized = ((txe - txa) >= span) | ((tye - tya) >= span)
     # top-left covered tile; oversized -> bucket T, culled -> T+1
     key = torch.where(base & ~oversized, tya * g + txa,
@@ -215,3 +227,119 @@ def rasterize_flow_bucket(face_verts, src_f2pts, image_size: int = 256,
                          order[..., None].expand(b, nf, 6))
     return cuda_raster.zbuffer_bucket_flow(verts, fid, srcxy, starts, s,
                                            tile, span, near, far)
+
+
+EX_SLOTS = 16  # oversized-face slots at the front of every tile
+
+
+def _tile_pairs(face_verts, s: int, tile: int, span: int, far: float):
+    """The (face, tile) pairs of the fixed-slot path.
+
+    A face that spans fewer than ``span`` tiles on both axes enumerates
+    the tiles of its bbox in a span×span window from its top-left tile;
+    wider faces are oversized. Returns (tid (B, nf, span, span) int32,
+    pair_valid (B, nf, span, span) bool, oversized faces (B, nf) bool)."""
+    g = s // tile
+    dev = face_verts.device
+    base, txa, txe, tya, tye = _cull_and_tiles(face_verts, s, tile, far)
+    oversized = ((txe - txa) >= span) | ((tye - tya) >= span)
+    d = torch.arange(span, dtype=torch.int32, device=dev)
+    ty = tya[..., None, None] + d[:, None]              # (B, nf, span, 1)
+    tx = txa[..., None, None] + d[None, :]              # (B, nf, 1, span)
+    tye, txe = tye[..., None, None], txe[..., None, None]
+    tid = torch.minimum(ty, tye) * g + torch.minimum(tx, txe)
+    pair_valid = (base & ~oversized)[..., None, None] & (ty <= tye) \
+        & (tx <= txe)
+    return tid, pair_valid, base & oversized
+
+
+def _tiled_candidates(face_verts, s: int, tile: int, cap: int, span: int,
+                      far: float):
+    """Candidate slots of the fixed-slot z-buffer (rasterizer.py:609-686).
+
+    Every (face, tile) pair gets the int32 key ``tile·nf + fid``; one sort
+    bins the faces into their tiles by ascending id, ``searchsorted``
+    finds each tile's run, and a tile keeps the first ``cap`` entries.
+    The 16 oversized faces of lowest id (``top_k`` of ``nf - fid``) sit
+    in front of every tile's slots. Returns (packed (B, nf, 9) float32,
+    cand (B, T, 16 + cap) int32 face ids, valid (B, T, 16 + cap) int32);
+    pairs beyond a tile's cap are dropped (:func:`raster_tile_stats`
+    counts them)."""
+    b, nf = face_verts.shape[0], face_verts.shape[1]
+    dev = face_verts.device
+    g = s // tile
+    n_tiles = g * g
+    if n_tiles * nf >= 2 ** 31:
+        raise ValueError(f"pair key overflows int32: {n_tiles} tiles, "
+                         f"{nf} faces")
+    cap = min(cap, nf)
+    tid, pair_valid, over = _tile_pairs(face_verts, s, tile, span, far)
+    fid = torch.arange(nf, dtype=torch.int32, device=dev)[:, None, None]
+    keys = torch.where(pair_valid, tid * nf + fid, n_tiles * nf)
+    sorted_keys = torch.sort(keys.reshape(b, -1), dim=1).values
+    tile_of = (sorted_keys // nf).contiguous()
+    fid_of = sorted_keys % nf
+    tids = torch.arange(n_tiles, dtype=torch.int32, device=dev)
+    starts = torch.searchsorted(tile_of, tids.expand(b, n_tiles).contiguous())
+    idx = (starts[..., None] + torch.arange(cap, device=dev)).reshape(b, -1)
+    idx = idx.clamp(0, tile_of.shape[1] - 1)
+    cand = torch.gather(fid_of, 1, idx).reshape(b, n_tiles, cap)
+    valid = torch.gather(tile_of, 1, idx).reshape(b, n_tiles, cap) \
+        == tids[:, None]
+
+    score = torch.where(over, nf - fid[:, 0, 0], -1)
+    if nf < EX_SLOTS:
+        score = torch.cat([score, score.new_full((b, EX_SLOTS - nf), -1)], 1)
+    ex = torch.topk(score, EX_SLOTS, dim=1).values          # (B, EX)
+    ex_ids = torch.where(ex > 0, nf - ex, 0)[:, None, :]
+    ex_valid = (ex > 0)[:, None, :]
+    cand = torch.cat([ex_ids.expand(b, n_tiles, EX_SLOTS), cand], 2)
+    valid = torch.cat([ex_valid.expand(b, n_tiles, EX_SLOTS), valid], 2)
+    packed = face_verts.reshape(b, nf, 9).contiguous()
+    return packed, cand.int().contiguous(), valid.int().contiguous()
+
+
+@torch.no_grad()
+def rasterize_fim_wim_tiled(face_verts, image_size: int = 256,
+                            near: float = DEFAULT_NEAR,
+                            far: float = DEFAULT_FAR, tile: int = 16,
+                            cap: int = 512, span: int = 2):
+    """Fixed-slot tiled rasterizer, same contract as
+    :func:`rasterize_fim_wim` while no tile holds more than ``cap``
+    candidates: beyond that its faces of highest id are dropped, and
+    oversized faces beyond 16 too (:func:`raster_tile_stats` reports
+    both). Exact z ties go to the lower slot: an oversized face before
+    the tile's own faces, else the lower face id.
+
+    The kernel reads each slot's vertices from the (B, nf, 9) face
+    table; no (B, T, slots, 9) candidate array is built."""
+    s = image_size
+    packed, cand, valid = _tiled_candidates(face_verts.float(), s, tile, cap,
+                                            span, far)
+    return cuda_raster.zbuffer_tiles(packed, cand, valid, s, tile, near, far)
+
+
+@torch.no_grad()
+def raster_tile_stats(face_verts, image_size: int = 256,
+                      far: float = DEFAULT_FAR, tile: int = 16,
+                      cap: int = 512, span: int = 2,
+                      ex: int = EX_SLOTS) -> dict:
+    """Occupancy and overflow of :func:`rasterize_fim_wim_tiled`'s
+    (tile, cap, span) point, per batch item ((B,) int64 tensors):
+    ``max_tile_occupancy`` (the fullest tile's candidate count),
+    ``dropped_pairs`` (Σ max(count - cap, 0)), ``oversized_faces`` and
+    ``oversized_dropped`` (those beyond the ``ex`` slots)."""
+    fv = face_verts.float()
+    b = fv.shape[0]
+    g = image_size // tile
+    tid, pair_valid, over = _tile_pairs(fv, image_size, tile, span, far)
+    counts = torch.zeros((b, g * g), dtype=torch.int64, device=fv.device)
+    counts.scatter_add_(1, tid.reshape(b, -1).long(),
+                        pair_valid.reshape(b, -1).long())
+    n_over = over.sum(1)
+    return {
+        "max_tile_occupancy": counts.amax(1),
+        "dropped_pairs": (counts - cap).clamp(min=0).sum(1),
+        "oversized_faces": n_over,
+        "oversized_dropped": (n_over - ex).clamp(min=0),
+    }

@@ -2,8 +2,8 @@
 ``impersonator_tpu/ops/smpl.py:32-198``).
 
 Geometry stays float32. On CUDA the matmuls must run in full fp32, as the
-JAX package runs them at HIGHEST precision: keep
-``torch.backends.cuda.matmul.allow_tf32`` False (the Imitator sets it).
+JAX package runs them at HIGHEST precision: :func:`smpl_forward` runs
+under ``utils.precision.full_fp32``, whatever the process's TF32 flags.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from impersonator_tpu_torch.assets import NUM_JOINTS, SMPLAssets
+from impersonator_tpu_torch.utils.precision import full_fp32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,17 +98,21 @@ def smpl_forward(params: SMPLParams, beta: torch.Tensor, theta: torch.Tensor,
     (N,19,3), rotations (N,24,3,3)."""
     n = beta.shape[0]
     nv = params.v_template.shape[0]
-    v_shaped = (beta @ params.shapedirs).reshape(n, nv, 3) + params.v_template
-    j = torch.einsum("nvc,vj->njc", v_shaped, params.j_regressor)
-    rots = batch_rodrigues(theta.reshape(n, NUM_JOINTS, 3))
-    eye = torch.eye(3, dtype=rots.dtype, device=rots.device)
-    pose_feature = (rots[:, 1:] - eye).reshape(n, -1)
-    v_posed = (pose_feature @ params.posedirs).reshape(n, nv, 3) + v_shaped
-    _, rel = _rigid_chain(rots, j, parents)
-    t_mats = torch.einsum("vj,njab->nvab", params.lbs_weights, rel)
-    v_homo = torch.cat([v_posed, torch.ones_like(v_posed[..., :1])], dim=-1)
-    verts = torch.einsum("nvab,nvb->nva", t_mats, v_homo)[..., :3]
-    joints = torch.einsum("nvc,vk->nkc", verts, params.joint_regressor)
+    with full_fp32():
+        v_shaped = ((beta @ params.shapedirs).reshape(n, nv, 3)
+                    + params.v_template)
+        j = torch.einsum("nvc,vj->njc", v_shaped, params.j_regressor)
+        rots = batch_rodrigues(theta.reshape(n, NUM_JOINTS, 3))
+        eye = torch.eye(3, dtype=rots.dtype, device=rots.device)
+        pose_feature = (rots[:, 1:] - eye).reshape(n, -1)
+        v_posed = ((pose_feature @ params.posedirs).reshape(n, nv, 3)
+                   + v_shaped)
+        _, rel = _rigid_chain(rots, j, parents)
+        t_mats = torch.einsum("vj,njab->nvab", params.lbs_weights, rel)
+        v_homo = torch.cat([v_posed, torch.ones_like(v_posed[..., :1])],
+                           dim=-1)
+        verts = torch.einsum("nvab,nvb->nva", t_mats, v_homo)[..., :3]
+        joints = torch.einsum("nvc,vk->nkc", verts, params.joint_regressor)
     return verts, joints, rots
 
 

@@ -1,19 +1,22 @@
-"""Motion imitation from given SMPLs (torch port of
-``impersonator_tpu/tasks/imitator.py:133-293, 300-487``).
+"""Motion imitation (torch port of
+``impersonator_tpu/tasks/imitator.py:67-293, 300-487, 663-693``).
 
 * :func:`personalize_core` — once per source: SMPL -> raster (fim, wim)
   -> conditioning -> morphology masks -> background inpainting and the
   source-feature cache;
 * :func:`imitate_core` — per frame batch: SMPL -> fused raster + flow ->
   warp of the source image -> cached-feature LWB decode -> compositing;
-* :class:`Imitator` — ``personalize`` and ``inference_by_smpls``.
+* :class:`Imitator` — ``personalize`` (from a given θ, or HMR's),
+  ``inference_by_smpls`` and ``inference`` (HMR on each target image,
+  then imitation).
 
 Tensors at these functions are NHWC, flows (B, H, W, 2), as in the JAX
 package; the generator runs NCHW and the transpose happens at its call.
 Dtype policy: generator params and feature inputs in the compute dtype
 (bf16 by default), flows float32, outputs float32, the source-image warp
-in the compute dtype. HMR, the detector, front warp and the inpainting
-background net are not ported yet, and asking for them raises.
+in the compute dtype; HMR and the geometry in float32. The detector,
+front warp and the inpainting background net are not ported yet, and
+asking for them raises.
 """
 
 from __future__ import annotations
@@ -28,11 +31,21 @@ from torch import nn
 from impersonator_tpu_torch.assets import SMPLAssets
 from impersonator_tpu_torch.config import TestConfig
 from impersonator_tpu_torch.models.generator import ImpersonatorGenerator
+from impersonator_tpu_torch.models.hmr import HumanModelRecovery, init_hmr
 from impersonator_tpu_torch.models.layers import init_weights
 from impersonator_tpu_torch.ops import morphology
 from impersonator_tpu_torch.ops import smpl as smpl_ops
 from impersonator_tpu_torch.ops.sampler import grid_sample_nchw
 from impersonator_tpu_torch.tasks.renderer import SMPLRenderer
+from impersonator_tpu_torch.utils.cv_utils import resize_img_hwc
+
+# Random HMR weights send θ far from any body on screen: the ResNet's
+# features grow to ~10^3 through the identity BatchNorms, and fc3 adds
+# them to θ three times. Scaling the seeded fc3 weights by this factor
+# keeps θ within ~0.06 of mean_theta on [-1, 1] images (seed 0), so a
+# randomly initialised Imitator still renders a body. Loaded weights
+# replace it all.
+RANDOM_HMR_FC3_SCALE = 5e-5
 
 
 @dataclasses.dataclass
@@ -44,15 +57,20 @@ class ImitatorNets:
     hmr: Optional[nn.Module] = None
 
 
-def build_nets(cfg: TestConfig) -> ImitatorNets:
+def build_nets(cfg: TestConfig, assets: SMPLAssets) -> ImitatorNets:
     """Randomly initialised networks (float32, CPU), seeded by cfg.seed;
-    the same seed gives the same weights on every device."""
+    the same seed gives the same weights on every device. HMR starts its
+    IEF from ``assets.mean_theta`` and has its fc3 weights scaled by
+    :data:`RANDOM_HMR_FC3_SCALE`."""
     cond_nc = 3  # uv_seg conditioning
     gen = ImpersonatorGenerator(bg_dim=4, src_dim=3 + cond_nc,
                                 tsf_dim=3 + cond_nc,
                                 repeat_num=cfg.repeat_num)
-    init_weights(gen, torch.Generator().manual_seed(cfg.seed))
-    return ImitatorNets(gen)
+    rng = torch.Generator().manual_seed(cfg.seed)
+    init_weights(gen, rng)
+    hmr = HumanModelRecovery()
+    init_hmr(hmr, rng, assets.mean_theta, fc3_scale=RANDOM_HMR_FC3_SCALE)
+    return ImitatorNets(gen, hmr)
 
 
 def _to_net(x, dtype):
@@ -163,8 +181,13 @@ def imitate_from_flow(nets: ImitatorNets, src_state, t, cond,
 
 
 class Imitator:
-    """``personalize`` once, then ``inference_by_smpls`` per request, on
-    one device (``device``, default CUDA; there is no CPU fallback)."""
+    """``personalize`` once, then ``inference_by_smpls`` or ``inference``
+    per request, on one device (``device``, default CUDA; there is no CPU
+    fallback).
+
+    The geometry and HMR run in full float32 on their own
+    (``utils.precision.full_fp32``); the Imitator leaves the process's
+    TF32 flags as it finds them."""
 
     def __init__(self, cfg: TestConfig, assets: SMPLAssets | None = None,
                  nets: ImitatorNets | None = None, device="cuda"):
@@ -174,9 +197,6 @@ class Imitator:
                 "or detector")
         self.cfg = cfg
         self.device = torch.device(device)
-        if self.device.type == "cuda":
-            # geometry matmuls in full fp32 (JAX: HIGHEST precision)
-            torch.backends.cuda.matmul.allow_tf32 = False
         self.assets = assets if assets is not None else cfg.assets()
         self.renderer = SMPLRenderer.create(self.assets, self.device,
                                             image_size=cfg.image_size)
@@ -186,42 +206,84 @@ class Imitator:
         self.compute_dtype = (torch.bfloat16
                               if cfg.compute_dtype == "bfloat16"
                               else torch.float32)
-        self.nets = nets if nets is not None else build_nets(cfg)
+        self.nets = nets if nets is not None else build_nets(cfg,
+                                                             self.assets)
         self.nets.generator.to(device=self.device,
                                dtype=self.compute_dtype).eval()
+        if self.nets.hmr is not None:
+            self.nets.hmr.to(device=self.device, dtype=torch.float32).eval()
         self.src_info = None
+        self.first_cam = None
+
+    @torch.no_grad()
+    def regress_smpl(self, img224):
+        """img224 (B, 224, 224, 3) in [-1, 1], array or tensor -> θ
+        (B, 85) float32 on the Imitator's device."""
+        if self.nets.hmr is None:
+            raise RuntimeError("the Imitator's nets have no HMR")
+        img = torch.as_tensor(img224, dtype=torch.float32,
+                              device=self.device)
+        return self.nets.hmr(img)
 
     def personalize(self, src_img, src_smpl=None):
-        """src_img (S, S, 3) float in [-1, 1]; src_smpl (85,) theta."""
+        """src_img (S, S, 3) float in [-1, 1]; src_smpl (85,) θ, or None
+        to regress it with HMR. As in the JAX package, HMR then sees
+        ``resize_img_hwc(src_img, 224)``, which maps the [-1, 1] image
+        once more by ``* 2 - 1``, to [-3, 1]."""
+        src_img = np.asarray(src_img, np.float32)
+        img = torch.as_tensor(src_img, device=self.device)[None]
         if src_smpl is None:
-            raise NotImplementedError(
-                "HMR is not ported yet: pass src_smpl")
-        img = torch.as_tensor(np.asarray(src_img, np.float32),
-                              device=self.device)[None]
-        theta = torch.as_tensor(np.asarray(src_smpl, np.float32),
-                                device=self.device).reshape(1, 85)
+            theta = self.regress_smpl(resize_img_hwc(src_img, 224)[None])
+        else:
+            theta = torch.as_tensor(np.asarray(src_smpl, np.float32),
+                                    device=self.device).reshape(1, 85)
         self.src_info = personalize_core(
             self.nets, self.renderer, self.smpl_params, self.parents, img,
             theta, bg_ks=self.cfg.bg_ks, ft_ks=self.cfg.ft_ks,
             only_vis=self.cfg.only_vis, compute_dtype=self.compute_dtype)
         return self.src_info
 
+    def _batches(self, frames, batch: int):
+        """Frames (N, ...) array or tensor -> float32 batches of ``batch``
+        on the device, the last one padded with the final frame."""
+        if self.src_info is None:
+            raise RuntimeError("call personalize() first")
+        x = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
+        n = x.shape[0]
+        pad = (-n) % batch
+        if pad:
+            x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+        return n, [x[i:i + batch] for i in range(0, n + pad, batch)]
+
+    def _imitate(self, tgt_smpls, first_cam, cam_strategy):
+        return imitate_with_swap_core(
+            self.nets, self.renderer, self.smpl_params, self.parents,
+            self.src_info, tgt_smpls, first_cam, cam_strategy,
+            self.compute_dtype)
+
     def inference_by_smpls(self, tgt_smpls, cam_strategy: str = "smooth",
                            batch: int = 8):
         """tgt_smpls (N, 85) array or tensor -> preds (N, S, S, 3) on the
         Imitator's device, in fixed-size batches (the last one padded with
         its final pose)."""
-        if self.src_info is None:
-            raise RuntimeError("call personalize() first")
-        smpls = torch.as_tensor(tgt_smpls, dtype=torch.float32,
-                                device=self.device)
-        n = smpls.shape[0]
-        pad = (-n) % batch
-        if pad:
-            smpls = torch.cat([smpls, smpls[-1:].expand(pad, -1)])
-        first_cam = smpls[0:1, 0:3]
-        outs = [imitate_with_swap_core(
-            self.nets, self.renderer, self.smpl_params, self.parents,
-            self.src_info, smpls[i:i + batch], first_cam, cam_strategy,
-            self.compute_dtype) for i in range(0, n + pad, batch)]
+        n, chunks = self._batches(tgt_smpls, batch)
+        self.first_cam = chunks[0][0:1, 0:3]
+        outs = [self._imitate(c, self.first_cam, cam_strategy)
+                for c in chunks]
+        return torch.cat(outs)[:n]
+
+    def inference(self, tgt_imgs224, cam_strategy: str = "smooth",
+                  batch: int = 8):
+        """tgt_imgs224 (N, 224, 224, 3) in [-1, 1], array or tensor ->
+        preds (N, S, S, 3): per batch, HMR then the imitation step; the
+        first batch's first θ gives the camera reference, and the last
+        batch is padded with its final image."""
+        n, chunks = self._batches(tgt_imgs224, batch)
+        outs = []
+        self.first_cam = None
+        for chunk in chunks:
+            thetas = self.regress_smpl(chunk)
+            if self.first_cam is None:
+                self.first_cam = thetas[0:1, 0:3]
+            outs.append(self._imitate(thetas, self.first_cam, cam_strategy))
         return torch.cat(outs)[:n]

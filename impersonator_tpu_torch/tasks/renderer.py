@@ -1,6 +1,8 @@
 """Renderer facade: constant tables + the raster / flow / encoding calls
 every task shares (torch port of
-``impersonator_tpu/tasks/renderer.py:61-208``)."""
+``impersonator_tpu/tasks/renderer.py:61-208``), with the JAX package's
+three-way z-buffer gate: bucket kernels, the fixed-slot tiled kernel for
+meshes over 60,000 faces, or the brute z-buffer."""
 
 from __future__ import annotations
 
@@ -36,23 +38,51 @@ class SMPLRenderer:
             image_size=image_size,
         )
 
+    def tile_params(self):
+        """(tile, cap, span) of the fixed-slot tiled path; tile 0 means
+        the image does not tile evenly (renderer.py:96-114). The tile is
+        8 px per 256 px of image, so that a tile's candidate count does
+        not depend on the resolution; span widens with mesh coarseness,
+        2·sqrt(13776/nf). raster_tile_stats shows whether the cap holds."""
+        s = self.image_size
+        tile = 8 * max(1, s // 256)
+        if s % tile:
+            tile = 8
+        if s % tile:
+            return 0, 0, 0
+        nf = self.faces.shape[0]
+        span = max(2, int(np.ceil(2.0 * np.sqrt(13776.0 / max(nf, 1)))))
+        return tile, 288, span
+
     def _bucket_config(self):
-        """(tile, span) of the bucket path, or None for the brute path —
-        the one gate render_fim_wim and render_flow share. The bucket path
-        needs an image that tiles evenly and a mesh big enough to amortise
-        the sort (nf > 256) yet within the sort key's range (nf <= 60000).
-        Tiles are 16 px where the image divides by 16, else 8 px (the JAX
-        gate's rarer 24/40-px tiles would not fit one CTA). Span is the
-        face size in tiles, sqrt(13776/nf) · (s/256) · (8/tile), doubled,
-        as in the JAX package's gate."""
+        """(tile, span) of the bucket path, or None — the one gate
+        render_fim_wim and render_flow share. The bucket path needs an
+        image that tiles evenly and a mesh big enough to amortise the sort
+        (nf > 256) yet within the range the JAX package keeps its sorted
+        table for (nf <= 60000). Tiles are 16 px where the image divides
+        by 16, else 8 px (the JAX gate's rarer 24/40-px tiles would not
+        fit one CTA). Span is the face size in tiles,
+        sqrt(13776/nf) · (s/256) · (8/tile), doubled, as in the JAX
+        package's gate."""
         s = self.image_size
         nf = self.faces.shape[0]
-        if s % 8 or not 256 < nf <= 60000:
+        if not (self.tile_params()[0] and 256 < nf <= 60000):
             return None
         tile = 16 if s % 16 == 0 else 8
         span = max(2, int(np.ceil(2.0 * np.sqrt(13776.0 / nf)
                                   * (s / 256.0) * (8.0 / tile))))
         return tile, span
+
+    def raster_route(self) -> str:
+        """Which z-buffer render_fim_wim runs: 'bucket', 'tiled' (meshes
+        over 60,000 faces) or 'brute' (tiny meshes, images that do not
+        tile) — the JAX gate (renderer.py:73-93) with the port's kernels
+        standing where it has the TPU's."""
+        if self._bucket_config() is not None:
+            return "bucket"
+        if self.tile_params()[0] and self.faces.shape[0] > 256:
+            return "tiled"
+        return "brute"
 
     def render_fim_wim(self, cam, verts):
         """(cam (B,3), verts (B,nv,3)) -> (f2verts (B,nf,3,3) in raster
@@ -60,15 +90,30 @@ class SMPLRenderer:
         f2verts = rast.project_to_raster_space(verts, cam, self.faces,
                                                self.eye_z_value)
         s = self.image_size
-        bucket = self._bucket_config()
-        if bucket is None:
-            fim, wim = rast.rasterize_fim_wim(f2verts, s, self.near,
-                                              self.far)
-        else:
-            tile, span = bucket
+        route = self.raster_route()
+        if route == "bucket":
+            tile, span = self._bucket_config()
             fim, wim = rast.rasterize_fim_wim_bucket(
                 f2verts, s, self.near, self.far, tile=tile, span=span)
+        elif route == "tiled":
+            tile, cap, span = self.tile_params()
+            fim, wim = rast.rasterize_fim_wim_tiled(
+                f2verts, s, self.near, self.far, tile=tile, cap=cap,
+                span=span)
+        else:
+            fim, wim = rast.rasterize_fim_wim(f2verts, s, self.near,
+                                              self.far)
         return f2verts, fim, wim
+
+    def tile_stats(self, f2verts):
+        """Occupancy and overflow of the tiled path's (tile, cap, span)
+        point on these faces (ops.rasterizer.raster_tile_stats), or None
+        where the image does not tile."""
+        tile, cap, span = self.tile_params()
+        if not tile:
+            return None
+        return rast.raster_tile_stats(f2verts, self.image_size, self.far,
+                                      tile=tile, cap=cap, span=span)
 
     def render_flow(self, cam, verts, src_f2pts):
         """(cam (B,3), verts (B,nv,3), src_f2pts (Bs,nf,3,2)) -> (fim, T):

@@ -1,11 +1,19 @@
-"""Weight bridge from the JAX package's generator params to this port.
+"""Weight bridge from the JAX package's params to this port.
 
-:func:`generator_state_dict_from_jax` is the exact inverse of
-``tools/convert_weights.convert_generator``: that maps a reference
-state dict onto the flax tree, this maps the flax tree back onto the
-reference key layout that :class:`..models.generator.ImpersonatorGenerator`
-uses. Conv kernels HWIO -> OIHW, transposed-conv kernels HWIO -> IOHW,
-instance-norm ``scale``/``bias`` -> ``weight``/``bias``.
+Each function is the exact inverse of a ``tools/convert_weights``
+converter: that maps a reference state dict onto the flax tree, this
+maps the flax tree back onto the reference key layout the port's
+modules use.
+
+* :func:`generator_state_dict_from_jax` inverts ``convert_generator``
+  (:class:`..models.generator.ImpersonatorGenerator`): conv kernels
+  HWIO -> OIHW, transposed-conv kernels HWIO -> IOHW, instance-norm
+  ``scale``/``bias`` -> ``weight``/``bias``;
+* :func:`hmr_state_dict_from_jax` inverts ``convert_hmr``
+  (:class:`..models.hmr.HumanModelRecovery`): also Dense kernels
+  (in, out) -> Linear weights (out, in), and BatchNorm ``scale``/
+  ``bias`` plus ``batch_stats`` ``mean``/``var`` -> ``weight``/``bias``/
+  ``running_mean``/``running_var``.
 """
 
 from __future__ import annotations
@@ -87,4 +95,67 @@ def generator_state_dict_from_jax(tree: dict) -> dict:
         if perm[kind] is not None:
             arr = arr.transpose(perm[kind])
         sd[key] = torch.tensor(arr)
+    return sd
+
+
+def _hmr_keys():
+    """(state-dict key, collection, flax path, kind) of every HMR tensor,
+    kind in {conv, dense, vec}; follows convert_hmr line by line."""
+    out = []
+
+    def bn(src, dst):
+        out.append((src + ".weight", "params", dst + "/scale", "vec"))
+        out.append((src + ".bias", "params", dst + "/bias", "vec"))
+        out.append((src + ".running_mean", "batch_stats", dst + "/mean",
+                    "vec"))
+        out.append((src + ".running_var", "batch_stats", dst + "/var",
+                    "vec"))
+
+    def conv(src, dst, bias=False):
+        out.append((src + ".weight", "params", dst + "/kernel", "conv"))
+        if bias:
+            out.append((src + ".bias", "params", dst + "/bias", "vec"))
+
+    conv("resnet.conv1", "resnet/conv1/conv", bias=True)
+    in_planes = 64
+    for li, (planes, nb) in enumerate(zip((64, 128, 256, 512), (3, 4, 6, 3)),
+                                      start=1):
+        for bi in range(nb):
+            src, dst = f"resnet.layer{li}.{bi}", f"resnet/layer{li}_{bi}"
+            for k in (1, 2, 3):
+                bn(f"{src}.bn{k}", f"{dst}/bn{k}")
+            conv(f"{src}.conv1", f"{dst}/conv1/conv")
+            conv(f"{src}.conv2", f"{dst}/conv2/conv")
+            conv(f"{src}.conv3", f"{dst}/conv3/conv", bias=True)
+            if in_planes != planes * 4:
+                conv(f"{src}.shortcut.0", f"{dst}/shortcut/conv", bias=True)
+            in_planes = planes * 4
+    bn("resnet.post_bn", "resnet/post_bn")
+    out.append(("regressor.mean_theta", "params", "regressor/mean_theta",
+                "vec"))
+    for k in (1, 2, 3):
+        fc = f"regressor.fc_blocks.fc{k}"
+        out.append((fc + ".weight", "params", f"regressor/fc{k}/kernel",
+                    "dense"))
+        out.append((fc + ".bias", "params", f"regressor/fc{k}/bias", "vec"))
+    return out
+
+
+def hmr_state_dict_from_jax(tree: dict) -> dict:
+    """{'params', 'batch_stats'} flax HMR tree of numpy arrays -> this
+    port's HumanModelRecovery state dict (float32 CPU tensors; each
+    BatchNorm's ``num_batches_tracked`` is 0, as the module starts)."""
+    perm = {"conv": (3, 2, 0, 1), "dense": (1, 0), "vec": None}
+    sd = {}
+    for key, coll, path, kind in _hmr_keys():
+        node = tree[coll]
+        for part in path.split("/"):
+            node = node[part]
+        arr = np.asarray(node, np.float32)
+        if perm[kind] is not None:
+            arr = arr.transpose(perm[kind])
+        sd[key] = torch.tensor(arr)
+        if key.endswith(".running_var"):
+            sd[key[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.tensor(0)
     return sd

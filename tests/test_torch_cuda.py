@@ -41,11 +41,11 @@ def scene():
     nf = fv.shape[1]
     src = fv[0:1, ..., :2].reshape(1, nf, 6).expand(4, nf, 6)
     srcxy = torch.gather(src, 1, order[..., None].expand(4, nf, 6))
-    return verts, fid, starts, srcxy.contiguous()
+    return verts, fid, starts, srcxy.contiguous(), fv
 
 
 def test_rows_kernel_matches_plain(scene):
-    verts, fid, starts, _ = scene
+    verts, fid, starts, _, _ = scene
     args = (S, TILE, SPAN, rast.DEFAULT_NEAR, rast.DEFAULT_FAR)
     before = cuda_raster.zbuffer_bucket_rows.launches
     fim_k, wim_k = cuda_raster.zbuffer_bucket_rows(verts, fid, starts, *args)
@@ -59,7 +59,7 @@ def test_rows_kernel_matches_plain(scene):
 
 
 def test_flow_kernel_matches_plain(scene):
-    verts, fid, starts, srcxy = scene
+    verts, fid, starts, srcxy, _ = scene
     args = (S, TILE, SPAN, rast.DEFAULT_NEAR, rast.DEFAULT_FAR)
     fim_k, t_k = cuda_raster.zbuffer_bucket_flow(verts, fid, srcxy, starts,
                                                  *args)
@@ -69,3 +69,47 @@ def test_flow_kernel_matches_plain(scene):
     assert torch.equal(fim_k, fim_p)
     assert (t_k[fim_k < 0] == -2.0).all()
     assert torch.allclose(t_k, t_p, rtol=0, atol=1e-5)
+
+
+def _tiles_vs_plain(fv, cap, span=3, tile=8):
+    slots = rast._tiled_candidates(fv, S, tile, cap, span, rast.DEFAULT_FAR)
+    args = (S, tile, rast.DEFAULT_NEAR, rast.DEFAULT_FAR)
+    before = cuda_raster.zbuffer_tiles.launches
+    fim_k, wim_k = cuda_raster.zbuffer_tiles(*slots, *args)
+    torch.cuda.synchronize()
+    assert cuda_raster.zbuffer_tiles.launches == before + 1
+    fim_p, wim_p = cuda_raster.zbuffer_tiles_plain(*slots, *args)
+    assert torch.equal(fim_k, fim_p)
+    assert (wim_k[fim_k < 0] == 0.0).all()
+    assert torch.allclose(wim_k, wim_p, rtol=0, atol=2e-4)
+    return fim_k
+
+
+def test_tiles_kernel_matches_plain_and_rows(scene):
+    """On the bodies at the renderer's 256² point (tile 8, cap 288, span
+    3) the fixed-slot kernel equals its twin and the bucket kernel's fim
+    (both are the brute z-buffer's)."""
+    verts, fid, starts, _, fv = scene
+    fim = _tiles_vs_plain(fv, 288)
+    fim_rows, _ = cuda_raster.zbuffer_bucket_rows(
+        verts, fid, starts, S, TILE, SPAN, rast.DEFAULT_NEAR,
+        rast.DEFAULT_FAR)
+    assert torch.equal(fim, fim_rows)
+    assert (fim >= 0).float().mean() > 0.02
+
+
+def test_tiles_kernel_matches_plain_on_cap_overflow():
+    """3,000 random faces of a few pixels at cap 4: most tiles overflow,
+    and kernel and twin drop the same candidates."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(9)
+    xy = rng.uniform(-0.8, 0.8, (2, 3000, 1, 2)) \
+        + rng.uniform(-0.03, 0.03, (2, 3000, 3, 2))
+    z = rng.uniform(1.5, 3.0, (2, 3000, 3, 1))
+    fv = torch.from_numpy(np.concatenate([xy, z], -1).astype(np.float32))
+    fv = fv.cuda()
+    stats = rast.raster_tile_stats(fv, S, rast.DEFAULT_FAR, 8, 4, 3)
+    assert int(stats["dropped_pairs"].min()) > 0
+    fim = _tiles_vs_plain(fv, 4)
+    assert (fim >= 0).float().mean() > 0.05

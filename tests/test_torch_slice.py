@@ -2,11 +2,14 @@
 Imitator.personalize + inference_by_smpls (torch, CPU, bucket raster
 path through the kernels' plain twins) against the JAX production cores
 personalize_core + imitate_with_swap_core (brute raster path off-TPU) on
-the same weights and inputs, float32. Also: the port never imports JAX.
+the same weights and inputs, float32. Also: neither the port nor
+chip_smoke.py imports JAX or any module of the JAX package.
 """
 
+import ast
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +30,7 @@ from tools import convert_weights as cw
 import torch_ref
 
 S, CONV_DIM, REPEAT = 64, 8, 2
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def test_imitation_slice_matches_jax(assets):
@@ -108,28 +112,46 @@ PORT_MODULES = [
     "impersonator_tpu_torch.ops.smpl",
     "impersonator_tpu_torch.models.layers",
     "impersonator_tpu_torch.models.generator",
+    "impersonator_tpu_torch.models.hmr",
     "impersonator_tpu_torch.tasks.renderer",
     "impersonator_tpu_torch.tasks.imitator",
     "impersonator_tpu_torch.utils.convert",
+    "impersonator_tpu_torch.utils.cv_utils",
     "impersonator_tpu_torch.assets",
     "impersonator_tpu_torch.config",
 ]
 
 
+def _chip_smoke_imports():
+    """Every module chip_smoke.py imports, at top level or inside its
+    functions."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            mods.add(node.module)
+            mods.update(f"{node.module}.{a.name}" for a in node.names)
+    return sorted(mods)
+
+
 def test_port_imports_no_jax():
-    """Every port module imports without JAX or flax, and of the JAX
-    package only assets and config."""
+    """Every port module, and everything chip_smoke.py imports, loads
+    without JAX, flax or any module of the JAX package."""
+    mods = PORT_MODULES + _chip_smoke_imports()
     code = (
         "import importlib, sys\n"
-        f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+        f"for m in {mods!r}:\n"
+        "    try:\n"
+        "        importlib.import_module(m)\n"
+        "    except ModuleNotFoundError:\n"
+        "        pass  # a name imported from a module, not a module\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax'))\n"
-        "jpkg = sorted(m for m in sys.modules "
-        "if m.startswith('impersonator_tpu.'))\n"
-        "print(bad, jpkg)\n"
-        "assert not bad, bad\n"
-        "assert jpkg == ['impersonator_tpu.assets', "
-        "'impersonator_tpu.config'], jpkg\n")
+        "('jax', 'jaxlib', 'flax', 'impersonator_tpu'))\n"
+        "print(bad)\n"
+        "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=120)
+                          text=True, timeout=120, cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "impersonator_tpu_torch.tasks.imitator" in mods
