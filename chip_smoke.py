@@ -11,20 +11,26 @@ Phases, each failing the run (exit 1) on any error:
    (build seconds);
 3. bucket kernels vs their plain twins on the card at 256² on the
    12,880-face synthetic body: 16 poses, plus a random scene with one
-   oversized front face and a scene behind the far plane; fim equal,
-   weights <= 2e-4, flow <= 1e-5; median ms of kernel and twin at
-   batch 16;
+   oversized front face, a scene behind the far plane and a degenerate
+   scene (equal vertices on pixel centres, collinear faces, slivers: the
+   pairs the kernels' warp cull must keep, tests/test_torch_cuda.py);
+   fim equal, weights <= 2e-4, flow <= 1e-5; the share of (warp, face)
+   pairs the cull keeps on the bodies (its plain mirror); ms of the twin
+   and of the kernel at batch 16: the median of CUDA events around a
+   lone call (the record's ms, as the earlier records timed it; it also
+   counts the host's launch), and the median device time of one launch
+   under torch.profiler (device_ms);
 3b. zbuffer_tiles vs its plain twin at the renderer's tile_params()
    point (tile 8, cap 288, span 3 at 256²) on the same 16 bodies, the
    random + oversized scene, the behind-far scene and 3,000 small faces
    at cap 4, where both drop the same candidates; fim equal, weights
    <= 2e-4; its fim on the bodies equals zbuffer_bucket_rows'; tile
-   stats; median ms of kernel and twin on the bodies (a shape the
-   renderer does not send it);
+   stats; ms and device_ms of the kernel, ms of the twin, on the bodies
+   (a shape the renderer does not send it);
 3c. the renderer's tiled route: render_fim_wim on 16 posed 63,480-face
    bodies launches zbuffer_tiles; on those slots the kernel's fim equals
-   the twin's and its weights are within 2e-4; median ms of kernel and
-   twin there, the kernel's record;
+   the twin's and its weights are within 2e-4; ms and device_ms of the
+   kernel and ms of the twin there, the kernel's record;
 4. the given-SMPL slice at full width (256², conv_dim 64, 6 res blocks,
    bf16): Imitator.personalize and three 64-frame inference_by_smpls
    requests at batch 16, with the kernels' launch counts over that run;
@@ -44,7 +50,8 @@ Phases, each failing the run (exit 1) on any error:
    2048-d features within 1e-5 of their largest magnitude, which the
    same encoder run in TF32 must fail, and max |dθ| <= 1e-4;
 6. one full-leg request under torch.profiler: summed kernel time, the
-   device's idle share of the wall time and the largest kernels
+   device's idle share of the wall time, the largest kernels and the
+   z-buffer kernels' mean device time per launch
    (full tables in chiprun_out/profile_*.txt).
 
 Each path (3c, 4, 4b) runs with every launch count set to 0 just before
@@ -53,10 +60,13 @@ launched. The line before the last is nvidia-smi's name and power
 limit, the one before it the kernels' JSON record (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its float operations
 over 67 TFLOP/s, the H100 SXM's published peaks, both counted on this
-run's inputs: 15 operations per (pixel, live candidate) pair for the
-inside test and 23 more per pair inside its face; every input read
-once, except the slots' face ids, read only where a slot is live); the
-last line is the JSON status. Weights are random (seeded); no checkpoint is read.
+run's inputs: 15 operations per (pixel, live candidate) pair whose
+pixel lies in the face's integer pixel bbox, as ops.rasterizer's cull
+computes it, and 23 more per pair inside its face; every input read
+once, except the slots' face ids, read only where a slot is live;
+bound_ms_all_pairs charges the 15 to every live pair instead, the count
+of the earlier records); the last line is the JSON status. Weights are
+random (seeded); no checkpoint is read.
 """
 
 import copy
@@ -77,8 +87,9 @@ FIM_EXACT, W_TOL, T_TOL, PRED_TOL = 0, 2e-4, 1e-5, 1e-2
 FEAT_RTOL, THETA_TOL = 1e-5, 1e-4
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: fp32 non-tensor, HBM3
 # float operations of the z-buffer contract: the inside test (three edge
-# functions) for every (pixel, candidate) pair; barycentric rows 12,
-# renormalisation 5 and depth 6 only for the pairs that pass it
+# functions) for every (pixel, candidate) pair that can pass it, the
+# pixel in the face's bbox; barycentric rows 12, renormalisation 5 and
+# depth 6 only for the pairs that pass it
 OPS_TEST, OPS_HIT = 15, 23
 
 
@@ -96,7 +107,9 @@ def gpu_line():
 
 
 def median_ms(fn, reps):
-    """Median device time of fn() over reps runs, CUDA events."""
+    """Median time of one fn() over reps calls, CUDA events around each
+    call: the card's time from the call's start, so it also counts the
+    host's launch."""
     import torch
     fn()
     times = []
@@ -111,6 +124,34 @@ def median_ms(fn, reps):
     return sorted(times)[len(times) // 2]
 
 
+def device_ms(fn, calls=20):
+    """Median device time of one launch of the z-buffer kernel that fn
+    launches, over `calls` calls under torch.profiler: the kernel's own
+    time, whatever the host does. None when the profiler sees no
+    z-buffer kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = sorted(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "zbuffer" in e.name)
+    return times[len(times) // 2] / 1e3 if times else None
+
+
+def kernel_ms(fn):
+    """(ms, device_ms) of a kernel wrapper: the median of a lone call
+    (median_ms), as the earlier records timed the kernels, and the median
+    device time of one launch (device_ms)."""
+    dev_ms = device_ms(fn)
+    check(dev_ms is not None, "the profiler saw no z-buffer kernel")
+    return median_ms(fn, 50), dev_ms
+
+
 def bound(ops, nbytes):
     """Least time the card could take: (ms, what bounds it)."""
     t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
@@ -122,37 +163,46 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def zbuffer_ops(cr, gather, m, b, s, tile):
+def zbuffer_ops(cr, rast, gather, m, b, s, tile):
     """Float operations these inputs need: OPS_TEST per (pixel, live
-    candidate) pair plus OPS_HIT per pair inside its face. gather(c0, c1)
-    gives candidates c0..c1 of every tile: (face verts (B, T, C, 9), live
-    (B, T, C) bool)."""
+    candidate) pair with the pixel in the face's integer pixel bbox (as
+    the rasterizer's cull computes it) plus OPS_HIT per pair inside its
+    face; and the earlier count, OPS_TEST for every live pair. gather(c0,
+    c1) gives candidates c0..c1 of every tile: (face verts (B, T, C, 9),
+    live (B, T, C) bool)."""
     n_tiles, npx = (s // tile) ** 2, tile * tile
     xi, yi, xp, yp = cr._tile_pixels(s, tile, gather(0, 1)[0].device)
     chunk = max(1, cr._PLAIN_BLOCK // (b * n_tiles * npx))
-    pairs = hits = 0
+    pairs = in_bbox = hits = 0
     for c0 in range(0, m, chunk):
         d, live = gather(c0, c0 + chunk)
         inside = cr._pair_weights(d, xi, yi, xp, yp, float(s))[0]
+        live = live[:, :, None, :]
+        x0, x1, y0, y1 = (v[:, :, None] for v in rast._pixel_bbox(
+            d[..., 0::3], d[..., 1::3], s))
+        box = (xi >= x0) & (xi <= x1) & (yi >= y0) & (yi <= y1)
         pairs += int(live.sum()) * npx
-        hits += int((inside & live[:, :, None, :]).sum())
-    return OPS_TEST * pairs + OPS_HIT * hits
+        in_bbox += int((box & live).sum())
+        hits += int((inside & live).sum())
+    return (OPS_TEST * in_bbox + OPS_HIT * hits,
+            OPS_TEST * pairs + OPS_HIT * hits)
 
 
-def bucket_ops(cr, verts, starts, s, tile, span):
+def bucket_ops(cr, rast, verts, starts, s, tile, span):
     pos = cr._tile_candidates(starts, s // tile, span)
     bidx = batch_index(verts)
 
     def gather(c0, c1):
         p = pos[..., c0:c1]
         return verts[bidx, p.clamp(min=0)], p >= 0
-    return zbuffer_ops(cr, gather, pos.shape[-1], verts.shape[0], s, tile)
+    return zbuffer_ops(cr, rast, gather, pos.shape[-1], verts.shape[0], s,
+                       tile)
 
 
-def tiles_work(cr, packed, cand, valid, s, tile):
-    """(float operations, bytes) the fixed-slot z-buffer needs on these
-    slots: the face table and valid read once, cand only where a slot is
-    live, fim and the weights written once."""
+def tiles_work(cr, rast, packed, cand, valid, s, tile):
+    """((float operations, all-pairs operations), bytes) the fixed-slot
+    z-buffer needs on these slots: the face table and valid read once,
+    cand only where a slot is live, fim and the weights written once."""
     nf = packed.shape[1]
     live = (valid != 0) & (cand >= 0) & (cand < nf)
     used = slots_used(live)
@@ -161,7 +211,7 @@ def tiles_work(cr, packed, cand, valid, s, tile):
     def gather(c0, c1):
         ids = cand[..., c0:c1].clamp(0, nf - 1).long()
         return packed[bidx, ids], live[..., c0:c1]
-    ops = zbuffer_ops(cr, gather, used, packed.shape[0], s, tile)
+    ops = zbuffer_ops(cr, rast, gather, used, packed.shape[0], s, tile)
     n_px = packed.shape[0] * s * s
     return ops, nbytes(packed, valid) + 4 * int(live.sum()) + 16 * n_px
 
@@ -298,14 +348,21 @@ def tiles_vs_plain(cr, rast, fv, cap, tile=TILES[0], span=TILES[2]):
     return (fim_k, wim_k), w_err, cov, (packed, cand, valid, geo)
 
 
-def time_tiles(cr, packed, cand, valid, geo):
-    """Median ms of zbuffer_tiles and of its twin on these slots, and the
-    kernel's bound (ms, what bounds it)."""
-    ms = median_ms(lambda: cr.zbuffer_tiles(packed, cand, valid, *geo), 50)
+def bounds_of(ops, nbytes_):
+    """(bound ms, what bounds it, all-pairs bound ms) of (ops, all-pairs
+    ops) and bytes."""
+    return bound(ops[0], nbytes_) + (bound(ops[1], nbytes_)[0],)
+
+
+def time_tiles(cr, rast, packed, cand, valid, geo):
+    """(ms, device_ms) of zbuffer_tiles (kernel_ms), the median ms of its
+    twin on these slots, and the kernel's bounds (ms, what bounds it,
+    all-pairs ms)."""
+    ms = kernel_ms(lambda: cr.zbuffer_tiles(packed, cand, valid, *geo))
     plain_ms = median_ms(lambda: cr.zbuffer_tiles_plain(packed, cand, valid,
                                                         *geo), 5)
-    return ms, plain_ms, bound(*tiles_work(cr, packed, cand, valid, geo[0],
-                                           geo[1]))
+    return ms, plain_ms, bounds_of(*tiles_work(cr, rast, packed, cand, valid,
+                                               geo[0], geo[1]))
 
 
 def profile_request(fn, out_path):
@@ -359,6 +416,7 @@ def main():
     from impersonator_tpu_torch.ops import smpl as smpl_ops
     from impersonator_tpu_torch.tasks import imitator as imi
     from impersonator_tpu_torch.tasks.renderer import SMPLRenderer
+    from impersonator_tpu_torch.scenes import degenerate_scene
 
     dev = torch.device("cuda")
     smi = gpu_line()
@@ -395,35 +453,50 @@ def main():
     check(cov_r > 0.3, f"random scene covers {cov_r}")
     cov_f, w_f, t_f, _, _ = kernel_vs_plain(cr, rast, fv_far, src_rand)
     check(cov_f == 0.0, f"far scene covers {cov_f}")
+    fv_deg = torch.from_numpy(degenerate_scene(GEOM["s"])).to(dev)
+    cov_d, w_d, t_d, _, _ = kernel_vs_plain(cr, rast, fv_deg,
+                                            fv_deg[0:1, ..., :2])
+    check(cov_d > 0.0, f"degenerate scene covers {cov_d}")
     print(f"kernels vs plain, random+oversized: fim equal, max |dw| {w_r}, "
-          f"max |dT| {t_r}; behind far: empty")
-    errs = {"zbuffer_bucket_rows": max(w_err, w_r, w_f),
-            "zbuffer_bucket_flow": max(t_err, t_r, t_f)}
+          f"max |dT| {t_r}; behind far: empty; degenerate ({fv_deg.shape[1]} "
+          f"faces): fim equal, coverage {cov_d:.4f}, max |dw| {w_d}, max "
+          f"|dT| {t_d}")
+    errs = {"zbuffer_bucket_rows": max(w_err, w_r, w_f, w_d),
+            "zbuffer_bucket_flow": max(t_err, t_r, t_f, t_d)}
 
     verts, fid, srcxy, starts, geo = body_in
+    masks, pos = cr.bucket_warp_masks_plain(verts, starts, GEOM["s"],
+                                            GEOM["tile"], GEOM["span"])
+    n_warps = (GEOM["tile"] // cr.WARP_W) * (GEOM["tile"] // cr.WARP_H)
+    kept = sum(int(((masks >> w) & 1).sum()) for w in range(n_warps))
+    keep_share = kept / (int((pos >= 0).sum()) * n_warps)
+    print(f"warp cull on the 16 bodies: keeps {kept} of "
+          f"{int((pos >= 0).sum()) * n_warps} (warp, face) pairs, "
+          f"{keep_share:.4f}", flush=True)
     timing = {
         "zbuffer_bucket_rows": (
-            median_ms(lambda: cr.zbuffer_bucket_rows(verts, fid, starts,
-                                                     *geo), 50),
+            kernel_ms(lambda: cr.zbuffer_bucket_rows(verts, fid, starts,
+                                                     *geo)),
             median_ms(lambda: cr.zbuffer_bucket_rows_plain(
                 verts, fid, starts, *geo), 5)),
         "zbuffer_bucket_flow": (
-            median_ms(lambda: cr.zbuffer_bucket_flow(
-                verts, fid, srcxy, starts, *geo), 50),
+            kernel_ms(lambda: cr.zbuffer_bucket_flow(
+                verts, fid, srcxy, starts, *geo)),
             median_ms(lambda: cr.zbuffer_bucket_flow_plain(
                 verts, fid, srcxy, starts, *geo), 5)),
     }
     # bounds: the operations these inputs need (OPS_TEST per pair of the
-    # tiles' candidate ranges, OPS_HIT per pair inside its face), each
-    # input read once, each output written once
-    ops = bucket_ops(cr, verts, starts, GEOM["s"], GEOM["tile"],
+    # tiles' candidate ranges whose pixel is in the face's bbox, OPS_HIT
+    # per pair inside its face; and the all-pairs count), each input read
+    # once, each output written once
+    ops = bucket_ops(cr, rast, verts, starts, GEOM["s"], GEOM["tile"],
                      GEOM["span"])
     n_px = verts.shape[0] * GEOM["s"] ** 2
     bounds = {
-        "zbuffer_bucket_rows": bound(ops, nbytes(verts, fid, starts)
-                                     + 16 * n_px),
-        "zbuffer_bucket_flow": bound(ops, nbytes(verts, fid, srcxy, starts)
-                                     + 12 * n_px),
+        "zbuffer_bucket_rows": bounds_of(ops, nbytes(verts, fid, starts)
+                                         + 16 * n_px),
+        "zbuffer_bucket_flow": bounds_of(ops, nbytes(verts, fid, srcxy,
+                                                     starts) + 12 * n_px),
     }
 
     # -- phase 3b: zbuffer_tiles vs its plain twin -------------------------
@@ -457,14 +530,17 @@ def main():
           f"{err_tz}, dropped_pairs {over['dropped_pairs']}; behind far: "
           f"empty", flush=True)
     errs["zbuffer_tiles"] = max(err_tb, err_tr, err_tz, err_tf)
-    for name, (ms, plain_ms) in timing.items():
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), batch 16 at "
-              f"256^2 {tag}", flush=True)
-    ms_b, plain_b, bound_b = time_tiles(cr, *tiles_in)
+    for name, ((ms, dev_ms), plain_ms) in timing.items():
+        print(f"{name}: kernel {ms:.4f} ms a lone call, {dev_ms:.4f} ms of "
+              f"device time per launch, plain {plain_ms:.4f} ms, bound {bounds[name][0]:.4f} ms "
+              f"({bounds[name][1]}), all-pairs bound {bounds[name][2]:.4f} "
+              f"ms, batch 16 at 256^2 {tag}", flush=True)
+    (ms_b, dev_b), plain_b, bound_b = time_tiles(cr, rast, *tiles_in)
     print(f"zbuffer_tiles on the 16 bodies ({assets.nf} faces, not its "
-          f"path): kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms, bound "
-          f"{bound_b[0]:.4f} ms ({bound_b[1]}), batch 16 at 256^2 {tag}",
+          f"path): kernel {ms_b:.4f} ms a lone call, {dev_b:.4f} ms of "
+          f"device time per launch, "
+          f"plain {plain_b:.4f} ms, bound {bound_b[0]:.4f} ms ({bound_b[1]}),"
+          f" all-pairs bound {bound_b[2]:.4f} ms, batch 16 at 256^2 {tag}",
           flush=True)
 
     # -- phase 3c: the renderer's tiled route (nf > 60,000) ----------------
@@ -488,7 +564,7 @@ def main():
     check(torch.equal(fim_big, fim_bk) and torch.equal(wim_big, wim_bk),
           "tiled route differs from zbuffer_tiles on its slots")
     errs["zbuffer_tiles"] = max(errs["zbuffer_tiles"], err_big)
-    ms_t, plain_t, bound_t = time_tiles(cr, *big_in)
+    ms_t, plain_t, bound_t = time_tiles(cr, rast, *big_in)
     timing["zbuffer_tiles"], bounds["zbuffer_tiles"] = (ms_t, plain_t), bound_t
     check(cov_big > 0.02, f"63k-face bodies cover {cov_big}")
     st_big = {k: v.tolist() for k, v in r_big.tile_stats(f2v_big).items()}
@@ -497,9 +573,12 @@ def main():
           f"the twin's, max |dw| {err_big}, coverage {cov_big:.4f}; "
           f"tile_stats max_tile_occupancy {st_big['max_tile_occupancy']}, "
           f"dropped_pairs {st_big['dropped_pairs']}", flush=True)
-    print(f"zbuffer_tiles on its path ({big.nf} faces): kernel {ms_t:.4f} "
-          f"ms, plain {plain_t:.4f} ms, bound {bound_t[0]:.4f} ms "
-          f"({bound_t[1]}), batch 16 at 256^2 {tag}", flush=True)
+    print(f"zbuffer_tiles on its path ({big.nf} faces): kernel "
+          f"{ms_t[0]:.4f} ms a lone call, {ms_t[1]:.4f} ms of device time "
+          f"per launch, plain "
+          f"{plain_t:.4f} ms, bound {bound_t[0]:.4f} ms ({bound_t[1]}), "
+          f"all-pairs bound {bound_t[2]:.4f} ms, batch 16 at 256^2 {tag}",
+          flush=True)
 
     # -- phase 4: the slice at full width ----------------------------------
     cfg = TestConfig(image_size=GEOM["s"], repeat_num=6)
@@ -681,6 +760,11 @@ def main():
               f"16 {tag}")
         for ms, n, name in rows[:12]:
             print(f"profile: {ms:9.3f} ms {n:5d} x {name[:90]}")
+        for ms, n, name in rows:
+            if "zbuffer" in name:
+                print(f"profile: {ms / n:.4f} ms of device time per launch "
+                      f"(mean) "
+                      f"({n} launches) of {name[:70]}")
     sys.stdout.flush()
 
     # launches: each kernel's count over the path that carries it — the
@@ -693,9 +777,10 @@ def main():
          "source": f"impersonator_tpu_torch/csrc/{src}",
          "replaces": f"impersonator_tpu/ops/pallas_raster.py:{line}",
          "launches": path_launches[name], "max_abs_err": errs[name],
-         "ms": timing[name][0], "plain_ms": timing[name][1],
+         "ms": timing[name][0][0], "device_ms": timing[name][0][1],
+         "plain_ms": timing[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": None}
+         "bound_ms_all_pairs": bounds[name][2], "library_ms": None}
         for name, src, line in (
             ("zbuffer_bucket_rows", "zbuffer_bucket.cu", 365),
             ("zbuffer_bucket_flow", "zbuffer_bucket.cu", 413),

@@ -38,6 +38,8 @@ cannot; for a CPU tensor it runs the plain twin, which takes the same
 inputs, walks the same candidates with the same float operations in the
 same order and the same tie-break, and so returns the same bits.
 ``launches`` on each wrapper counts kernel launches.
+:func:`bucket_warp_masks_plain` mirrors the bucket kernel's exact warp
+cull (which faces each warp of a tile tests), for the tests.
 """
 
 from __future__ import annotations
@@ -77,6 +79,14 @@ SYMBOLS = {
 # elements of one (batch, tile, pixel, candidate) block the plain twins
 # evaluate at once
 _PLAIN_BLOCK = 1 << 24
+
+# the bucket kernel's warp footprint in pixels (csrc/zbuffer_bucket.cu)
+WARP_W, WARP_H = 8, 4
+# slack of the warp cull (zbuffer_bucket.cu says why these suffice):
+# 32 units of 2^-24 relative to an edge function's magnitude bound, a
+# floor far above any subnormal rounding, and the magnitude above which a
+# face is never culled
+_CULL_REL, _CULL_ABS, _CULL_MAX = 2.0 ** -19, 2.0 ** -100, 2.0 ** 40
 
 
 class _Library:
@@ -340,6 +350,86 @@ def _tile_pixels(s, tile, dev):
     xp = (2.0 * xi + 1.0 - sf) / sf
     yp = (2.0 * yi + 1.0 - sf) / sf
     return xi, yi, xp, yp
+
+
+def warp_of_pixel(tile, dev=None):
+    """The bucket kernel's warp of each pixel of a tile (row-major), as
+    (tile*tile,) int64: warps of WARP_W x WARP_H pixels, row-major."""
+    p = torch.arange(tile * tile, device=dev)
+    return (p // tile // WARP_H) * (tile // WARP_W) + (p % tile) // WARP_W
+
+
+def bucket_warp_masks_plain(verts, starts, s: int, tile: int, span: int):
+    """The bucket kernel's warp cull, in its float32 operation order: for
+    each candidate of each tile, the bitmask of the tile's warps that the
+    face may touch (bit w set = warp w tests it pixel by pixel). A face
+    that fails the same test on the whole tile has no bit set.
+
+    Returns (masks (B, T, M) int32, 0 on padding; pos (B, T, M), the
+    candidates' sorted-table positions as :func:`_tile_candidates` gives
+    them). Used by the tests and the chip check, never by a wrapper."""
+    g = s // tile
+    dev = verts.device
+    pos = _tile_candidates(starts, g, span)
+    bidx = torch.arange(verts.shape[0], device=dev)[:, None, None]
+    d = verts[bidx, pos.clamp(min=0)]                    # (B, T, M, 9)
+    fx, fy = d[..., 0::3], d[..., 1::3]                  # vertex k = [..., k]
+    ex = torch.roll(fx, -1, -1) - fx                     # edge k: k -> k+1
+    ey = torch.roll(fy, -1, -1) - fy
+    sf = float(s)
+    t = torch.arange(g * g, device=dev)
+    x0, y0 = (t % g) * tile, (t // g) * tile
+
+    def centre(i):                        # pixel index (T,) -> (1, T, 1, 1)
+        return ((2.0 * i.float() + 1.0 - sf) / sf)[None, :, None, None]
+
+    ymax = torch.maximum((centre(y0) - fy).abs(),
+                         (centre(y0 + tile - 1) - fy).abs())
+    xmax = torch.maximum((centre(x0) - fx).abs(),
+                         (centre(x0 + tile - 1) - fx).abs())
+    mag = ymax * ex.abs() + xmax * ey.abs()
+    err = mag * _CULL_REL + _CULL_ABS
+    cullable = ((mag < _CULL_MAX) & (ex.abs() < _CULL_MAX)
+                & (ey.abs() < _CULL_MAX)).all(-1)
+
+    def same_sign(p):
+        q = torch.roll(p, -1, -1)
+        return ((p > 0) & (q > 0)) | ((p < 0) & (q < 0))
+
+    def pair_keeps(lam, t_a, t_b):
+        """The sum of edges k and k+1 weighted by lam: is its max over two
+        corners not below its slack?"""
+        lam_j = torch.roll(lam, 1, -1)
+        bound = lam * err + lam_j * torch.roll(err, -1, -1) + _CULL_ABS
+        v_a = lam * t_a + lam_j * torch.roll(t_a, -1, -1)
+        v_b = lam * t_b + lam_j * torch.roll(t_b, -1, -1)
+        return ~(torch.maximum(v_a, v_b) < -bound)
+
+    def rect_keeps(xl, xh, yl, yh):
+        """Can a pixel centre of the rectangle [xl, xh] x [yl, yh] pass?"""
+        ay_l, ay_h = (yl - fy) * ex, (yh - fy) * ex
+        bx_l, bx_h = (xl - fx) * ey, (xh - fx) * ey
+        t_ll, t_hl = ay_l - bx_l, ay_l - bx_h
+        t_lh, t_hh = ay_h - bx_l, ay_h - bx_h
+        top = torch.maximum(torch.maximum(t_ll, t_hl),
+                            torch.maximum(t_lh, t_hh))
+        keep = ~(top < -err)
+        keep &= same_sign(ex) | pair_keeps(torch.roll(ex, -1, -1).abs(),
+                                           t_ll, t_hl)
+        keep &= same_sign(ey) | pair_keeps(torch.roll(ey, -1, -1).abs(),
+                                           t_ll, t_lh)
+        return keep.all(-1)
+
+    in_tile = rect_keeps(centre(x0), centre(x0 + tile - 1), centre(y0),
+                         centre(y0 + tile - 1))
+    cols = tile // WARP_W
+    masks = torch.zeros(pos.shape, dtype=torch.int32, device=dev)
+    for w in range(cols * tile // WARP_H):
+        xw, yw = x0 + WARP_W * (w % cols), y0 + WARP_H * (w // cols)
+        keep = rect_keeps(centre(xw), centre(xw + WARP_W - 1), centre(yw),
+                          centre(yw + WARP_H - 1))
+        masks |= (~cullable | (in_tile & keep)).int() << w
+    return torch.where(pos >= 0, masks, 0), pos
 
 
 def _pair_weights(d, xi, yi, xp, yp, sf):

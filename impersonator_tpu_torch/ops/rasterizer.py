@@ -125,6 +125,17 @@ def rasterize_fim_wim(face_verts, image_size: int = 256,
     return fim, wim
 
 
+def _pixel_bbox(xv, yv, s: int):
+    """Faces' integer pixel bbox from their (..., 3) vertex x and y: the
+    first and last pixel index whose centre lies within the vertices'
+    extent, (xi0, xi1, yi0, yi1) as floats."""
+    def to_pix(v):
+        return (v * s + s - 1.0) * 0.5
+
+    return (torch.ceil(to_pix(xv.amin(-1))), torch.floor(to_pix(xv.amax(-1))),
+            torch.ceil(to_pix(yv.amin(-1))), torch.floor(to_pix(yv.amax(-1))))
+
+
 def _cull_and_tiles(face_verts, s: int, tile: int, far: float):
     """Per face (B, nf): whether it can cover a pixel (front-facing, in
     front of far, its pixel-centre bbox on screen), and the tile range
@@ -132,14 +143,7 @@ def _cull_and_tiles(face_verts, s: int, tile: int, far: float):
     g = s // tile
     xv, yv, zv = face_verts[..., 0], face_verts[..., 1], face_verts[..., 2]
     front = _face_front(xv, yv)
-
-    def to_pix(v):
-        return (v * s + s - 1.0) * 0.5
-
-    xi0 = torch.ceil(to_pix(xv.amin(2))).int()
-    xi1 = torch.floor(to_pix(xv.amax(2))).int()
-    yi0 = torch.ceil(to_pix(yv.amin(2))).int()
-    yi1 = torch.floor(to_pix(yv.amax(2))).int()
+    xi0, xi1, yi0, yi1 = (v.int() for v in _pixel_bbox(xv, yv, s))
     on_screen = ((xi0 <= xi1) & (yi0 <= yi1) & (xi1 >= 0) & (xi0 < s)
                  & (yi1 >= 0) & (yi0 < s))
     base = front & (zv.amin(2) < far) & on_screen

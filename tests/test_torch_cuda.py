@@ -14,14 +14,26 @@ from impersonator_tpu_torch.assets import bench_assets
 from impersonator_tpu_torch.ops import cuda_raster
 from impersonator_tpu_torch.ops import rasterizer as rast
 from impersonator_tpu_torch.ops import smpl as smpl_ops
+from impersonator_tpu_torch.scenes import degenerate_scene
 
 pytestmark = pytest.mark.cuda
 
 S, TILE, SPAN = 256, 16, 2
 
 
+def _sorted(fv, s=S, tile=TILE, span=SPAN):
+    """Bucket-sorted inputs of both kernels, with the first item's source
+    xy as the flow's source."""
+    verts, fid, starts, order = rast._bucket_sort(fv, s, tile, span,
+                                                  rast.DEFAULT_FAR)
+    b, nf = fv.shape[0], fv.shape[1]
+    src = fv[0:1, ..., :2].reshape(1, nf, 6).expand(b, nf, 6)
+    srcxy = torch.gather(src, 1, order[..., None].expand(b, nf, 6))
+    return verts, fid, starts, srcxy.contiguous(), fv
+
+
 @pytest.fixture(scope="module")
-def scene():
+def bodies():
     """Four posed 12,880-face bodies at 256² on the card, bucket-sorted,
     with the first pose's source xy."""
     if not torch.cuda.is_available():
@@ -35,17 +47,22 @@ def scene():
     theta[1:, 3:75] = rng.normal(0, 0.05, (3, 72))
     d = smpl_ops.get_details(params, torch.from_numpy(theta).to(dev),
                              assets.parents)
-    fv = rast.project_to_raster_space(d["verts"], d["cam"], params.faces)
-    verts, fid, starts, order = rast._bucket_sort(fv, S, TILE, SPAN,
-                                                  rast.DEFAULT_FAR)
-    nf = fv.shape[1]
-    src = fv[0:1, ..., :2].reshape(1, nf, 6).expand(4, nf, 6)
-    srcxy = torch.gather(src, 1, order[..., None].expand(4, nf, 6))
-    return verts, fid, starts, srcxy.contiguous(), fv
+    return _sorted(rast.project_to_raster_space(d["verts"], d["cam"],
+                                                params.faces))
+
+
+@pytest.fixture(scope="module", params=["bodies", "degenerate"])
+def scene(request, bodies):
+    """(name, bucket inputs): the bodies, and the degenerate scene that
+    the warp cull must keep where the inside test passes."""
+    if request.param == "bodies":
+        return request.param, bodies
+    fv = torch.from_numpy(degenerate_scene(S)).cuda()
+    return request.param, _sorted(fv)
 
 
 def test_rows_kernel_matches_plain(scene):
-    verts, fid, starts, _, _ = scene
+    name, (verts, fid, starts, _, _) = scene
     args = (S, TILE, SPAN, rast.DEFAULT_NEAR, rast.DEFAULT_FAR)
     before = cuda_raster.zbuffer_bucket_rows.launches
     fim_k, wim_k = cuda_raster.zbuffer_bucket_rows(verts, fid, starts, *args)
@@ -54,12 +71,13 @@ def test_rows_kernel_matches_plain(scene):
     fim_p, wim_p = cuda_raster.zbuffer_bucket_rows_plain(verts, fid, starts,
                                                          *args)
     assert torch.equal(fim_k, fim_p)
-    assert (fim_k >= 0).float().mean() > 0.02
+    if name == "bodies":
+        assert (fim_k >= 0).float().mean() > 0.02
     assert torch.allclose(wim_k, wim_p, rtol=0, atol=2e-4)
 
 
 def test_flow_kernel_matches_plain(scene):
-    verts, fid, starts, srcxy, _ = scene
+    _, (verts, fid, starts, srcxy, _) = scene
     args = (S, TILE, SPAN, rast.DEFAULT_NEAR, rast.DEFAULT_FAR)
     fim_k, t_k = cuda_raster.zbuffer_bucket_flow(verts, fid, srcxy, starts,
                                                  *args)
@@ -68,6 +86,30 @@ def test_flow_kernel_matches_plain(scene):
                                                        starts, *args)
     assert torch.equal(fim_k, fim_p)
     assert (t_k[fim_k < 0] == -2.0).all()
+    assert torch.allclose(t_k, t_p, rtol=0, atol=1e-5)
+
+
+def test_kernels_match_plain_at_tile_8():
+    """The 8-px tile instantiation (2 warps a tile), which the renderer
+    takes where the image does not divide by 16: the degenerate scene at
+    64², span 3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    s, tile, span = 64, 8, 3
+    fv = torch.from_numpy(degenerate_scene(s)).cuda()
+    verts, fid, starts, srcxy, _ = _sorted(fv, s, tile, span)
+    args = (s, tile, span, rast.DEFAULT_NEAR, rast.DEFAULT_FAR)
+    fim_k, wim_k = cuda_raster.zbuffer_bucket_rows(verts, fid, starts, *args)
+    fimf_k, t_k = cuda_raster.zbuffer_bucket_flow(verts, fid, srcxy, starts,
+                                                  *args)
+    torch.cuda.synchronize()
+    fim_p, wim_p = cuda_raster.zbuffer_bucket_rows_plain(verts, fid, starts,
+                                                         *args)
+    _, t_p = cuda_raster.zbuffer_bucket_flow_plain(verts, fid, srcxy, starts,
+                                                   *args)
+    assert torch.equal(fim_k, fim_p) and torch.equal(fimf_k, fim_p)
+    assert (fim_k >= 0).float().mean() > 0.05
+    assert torch.allclose(wim_k, wim_p, rtol=0, atol=2e-4)
     assert torch.allclose(t_k, t_p, rtol=0, atol=1e-5)
 
 
@@ -85,11 +127,11 @@ def _tiles_vs_plain(fv, cap, span=3, tile=8):
     return fim_k
 
 
-def test_tiles_kernel_matches_plain_and_rows(scene):
+def test_tiles_kernel_matches_plain_and_rows(bodies):
     """On the bodies at the renderer's 256² point (tile 8, cap 288, span
     3) the fixed-slot kernel equals its twin and the bucket kernel's fim
     (both are the brute z-buffer's)."""
-    verts, fid, starts, _, fv = scene
+    verts, fid, starts, _, fv = bodies
     fim = _tiles_vs_plain(fv, 288)
     fim_rows, _ = cuda_raster.zbuffer_bucket_rows(
         verts, fid, starts, S, TILE, SPAN, rast.DEFAULT_NEAR,
