@@ -22,15 +22,19 @@ Phases, each failing the run (exit 1) on any error:
    under torch.profiler (device_ms);
 3b. zbuffer_tiles vs its plain twin at the renderer's tile_params()
    point (tile 8, cap 288, span 3 at 256²) on the same 16 bodies, the
-   random + oversized scene, the behind-far scene and 3,000 small faces
-   at cap 4, where both drop the same candidates; fim equal, weights
-   <= 2e-4; its fim on the bodies equals zbuffer_bucket_rows'; tile
-   stats; ms and device_ms of the kernel, ms of the twin, on the bodies
-   (a shape the renderer does not send it);
+   random + oversized scene, the behind-far scene, 3,000 small faces
+   at cap 4, where both drop the same candidates, and the tie scene
+   (scenes.tie_scene: coplanar faces of equal depth on both sides of the
+   kernel's share boundaries); fim equal, weights <= 2e-4; its fim on the
+   bodies equals zbuffer_bucket_rows'; tile stats; ms and device_ms of
+   the kernel, ms of the twin, on the bodies (a shape the renderer does
+   not send it);
 3c. the renderer's tiled route: render_fim_wim on 16 posed 63,480-face
-   bodies launches zbuffer_tiles; on those slots the kernel's fim equals
-   the twin's and its weights are within 2e-4; ms and device_ms of the
-   kernel and ms of the twin there, the kernel's record;
+   bodies launches zbuffer_tiles; on those slots, and on the tie scene
+   at batch 16, the kernel's fim equals the twin's and its weights are
+   within 2e-4; ms and device_ms of the kernel and ms of the twin there,
+   the kernel's record; the route's device time split into the slot
+   build and the kernel;
 4. the given-SMPL slice at full width (256², conv_dim 64, 6 res blocks,
    bf16): Imitator.personalize and three 64-frame inference_by_smpls
    requests at batch 16, with the kernels' launch counts over that run;
@@ -63,10 +67,11 @@ over 67 TFLOP/s, the H100 SXM's published peaks, both counted on this
 run's inputs: 15 operations per (pixel, live candidate) pair whose
 pixel lies in the face's integer pixel bbox, as ops.rasterizer's cull
 computes it, and 23 more per pair inside its face; every input read
-once, except the slots' face ids, read only where a slot is live;
-bound_ms_all_pairs charges the 15 to every live pair instead, the count
-of the earlier records); the last line is the JSON status. Weights are
-random (seeded); no checkpoint is read.
+once, except the slots' face ids, read only where a slot is live, and
+zbuffer_tiles' face table, of which only the rows a live slot names are
+read; bound_ms_all_pairs charges the 15 to every live pair instead, the
+count of the earlier records); the last line is the JSON status. Weights
+are random (seeded); no checkpoint is read.
 """
 
 import copy
@@ -167,13 +172,16 @@ def zbuffer_ops(cr, rast, gather, m, b, s, tile):
     """Float operations these inputs need: OPS_TEST per (pixel, live
     candidate) pair with the pixel in the face's integer pixel bbox (as
     the rasterizer's cull computes it) plus OPS_HIT per pair inside its
-    face; and the earlier count, OPS_TEST for every live pair. gather(c0,
-    c1) gives candidates c0..c1 of every tile: (face verts (B, T, C, 9),
-    live (B, T, C) bool)."""
+    face; the earlier count, OPS_TEST for every live pair; and the live
+    (tile, candidate) pairs: all, those with a pixel of the tile in the
+    face's bbox, and those passing the inside test at a pixel of the
+    tile. gather(c0, c1) gives candidates c0..c1 of every tile: (face
+    verts (B, T, C, 9), live (B, T, C) bool)."""
     n_tiles, npx = (s // tile) ** 2, tile * tile
     xi, yi, xp, yp = cr._tile_pixels(s, tile, gather(0, 1)[0].device)
     chunk = max(1, cr._PLAIN_BLOCK // (b * n_tiles * npx))
     pairs = in_bbox = hits = 0
+    cands = [0, 0, 0]
     for c0 in range(0, m, chunk):
         d, live = gather(c0, c0 + chunk)
         inside = cr._pair_weights(d, xi, yi, xp, yp, float(s))[0]
@@ -184,8 +192,10 @@ def zbuffer_ops(cr, rast, gather, m, b, s, tile):
         pairs += int(live.sum()) * npx
         in_bbox += int((box & live).sum())
         hits += int((inside & live).sum())
+        for i, any_px in enumerate((live, box & live, inside & live)):
+            cands[i] += int(any_px.any(2).sum())
     return (OPS_TEST * in_bbox + OPS_HIT * hits,
-            OPS_TEST * pairs + OPS_HIT * hits)
+            OPS_TEST * pairs + OPS_HIT * hits, tuple(cands))
 
 
 def bucket_ops(cr, rast, verts, starts, s, tile, span):
@@ -196,14 +206,19 @@ def bucket_ops(cr, rast, verts, starts, s, tile, span):
         p = pos[..., c0:c1]
         return verts[bidx, p.clamp(min=0)], p >= 0
     return zbuffer_ops(cr, rast, gather, pos.shape[-1], verts.shape[0], s,
-                       tile)
+                       tile)[:2]
 
 
 def tiles_work(cr, rast, packed, cand, valid, s, tile):
-    """((float operations, all-pairs operations), bytes) the fixed-slot
-    z-buffer needs on these slots: the face table and valid read once,
-    cand only where a slot is live, fim and the weights written once."""
-    nf = packed.shape[1]
+    """((float operations, all-pairs operations), bytes, bytes with the
+    whole face table charged, the live (tile, slot) pairs: all, with a
+    pixel of the tile in the face's bbox, with a hit) of the fixed-slot
+    z-buffer on these slots. Bytes: valid read once, cand only where a
+    slot is live, the 36 bytes of each face row that a live slot names
+    read once (the earlier records charged the whole face table), fim and
+    the weights written once."""
+    import torch
+    b, nf = packed.shape[0], packed.shape[1]
     live = (valid != 0) & (cand >= 0) & (cand < nf)
     used = slots_used(live)
     bidx = batch_index(packed)
@@ -211,9 +226,12 @@ def tiles_work(cr, rast, packed, cand, valid, s, tile):
     def gather(c0, c1):
         ids = cand[..., c0:c1].clamp(0, nf - 1).long()
         return packed[bidx, ids], live[..., c0:c1]
-    ops = zbuffer_ops(cr, rast, gather, used, packed.shape[0], s, tile)
-    n_px = packed.shape[0] * s * s
-    return ops, nbytes(packed, valid) + 4 * int(live.sum()) + 16 * n_px
+    *ops, cands = zbuffer_ops(cr, rast, gather, used, b, s, tile)
+    named = torch.zeros((b, nf), dtype=torch.bool, device=packed.device)
+    named[bidx.expand_as(cand)[live], cand[live].long()] = True
+    rest = nbytes(valid) + 4 * int(live.sum()) + 16 * b * s * s
+    return (ops, 36 * int(named.sum()) + rest, nbytes(packed) + rest,
+            cands)
 
 
 def batch_index(t):
@@ -331,10 +349,25 @@ def kernel_vs_plain(cr, rast, fv, src_f2pts):
 def tiles_vs_plain(cr, rast, fv, cap, tile=TILES[0], span=TILES[2]):
     """zbuffer_tiles and its twin on one scene's slots; returns (kernel
     fim and wim, max weight error, coverage, slot inputs)."""
+    slots = rast._tiled_candidates(fv, GEOM["s"], tile, cap, span,
+                                   rast.DEFAULT_FAR)
+    return slots_vs_plain(cr, rast, slots, tile)
+
+
+def tie_slots(dev, tile, slots, batch):
+    """The tie scene's slots at 256² on the card (scenes.tie_scene)."""
     import torch
+    from impersonator_tpu_torch.scenes import tie_scene
+    return tuple(torch.from_numpy(a).to(dev) for a in tie_scene(
+        GEOM["s"], tile, slots=slots, batch=batch))
+
+
+def slots_vs_plain(cr, rast, slots, tile):
+    """zbuffer_tiles and its twin on given slots (packed, cand, valid);
+    returns as tiles_vs_plain."""
+    import torch
+    packed, cand, valid = slots
     s = GEOM["s"]
-    packed, cand, valid = rast._tiled_candidates(fv, s, tile, cap, span,
-                                                 rast.DEFAULT_FAR)
     geo = (s, tile, rast.DEFAULT_NEAR, rast.DEFAULT_FAR)
     fim_k, wim_k = cr.zbuffer_tiles(packed, cand, valid, *geo)
     torch.cuda.synchronize()
@@ -356,13 +389,41 @@ def bounds_of(ops, nbytes_):
 
 def time_tiles(cr, rast, packed, cand, valid, geo):
     """(ms, device_ms) of zbuffer_tiles (kernel_ms), the median ms of its
-    twin on these slots, and the kernel's bounds (ms, what bounds it,
-    all-pairs ms)."""
+    twin on these slots, the kernel's bounds (ms, what bounds it,
+    all-pairs ms, ms with the whole face table charged) and the live
+    (tile, slot) pairs (tiles_work)."""
     ms = kernel_ms(lambda: cr.zbuffer_tiles(packed, cand, valid, *geo))
     plain_ms = median_ms(lambda: cr.zbuffer_tiles_plain(packed, cand, valid,
                                                         *geo), 5)
-    return ms, plain_ms, bounds_of(*tiles_work(cr, rast, packed, cand, valid,
-                                               geo[0], geo[1]))
+    ops, nbytes_, nbytes_table, cands = tiles_work(
+        cr, rast, packed, cand, valid, geo[0], geo[1])
+    return ms, plain_ms, (bounds_of(ops, nbytes_)
+                          + (bound(ops[0], nbytes_table)[0],)), cands
+
+
+def route_split(fn, calls=10):
+    """Mean device time of one fn() under torch.profiler, split into the
+    z-buffer kernels and everything else (ms, ms); None when the profiler
+    sees no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kern = rest = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            if "zbuffer" in e.name:
+                kern += us
+            else:
+                rest += us
+    if kern + rest == 0.0:
+        return None
+    return rest / calls / 1e3, kern / calls / 1e3
 
 
 def profile_request(fn, out_path):
@@ -529,19 +590,26 @@ def main():
           f"{err_tr}; 3,000 small faces at cap 4: fim equal, max |dw| "
           f"{err_tz}, dropped_pairs {over['dropped_pairs']}; behind far: "
           f"empty", flush=True)
-    errs["zbuffer_tiles"] = max(err_tb, err_tr, err_tz, err_tf)
+    n_slots = 16 + cap
+    _, err_tt, cov_tt, _ = slots_vs_plain(cr, rast, tie_slots(
+        dev, tile8, n_slots, 4), tile8)
+    check(cov_tt > 0.05, f"tie scene coverage {cov_tt}")
+    print(f"zbuffer_tiles vs plain, tie scene (4 items, {n_slots} slots, "
+          f"240 coplanar faces at one depth in random slot order): fim "
+          f"equal, max |dw| {err_tt}, coverage {cov_tt:.4f}", flush=True)
+    errs["zbuffer_tiles"] = max(err_tb, err_tr, err_tz, err_tf, err_tt)
     for name, ((ms, dev_ms), plain_ms) in timing.items():
         print(f"{name}: kernel {ms:.4f} ms a lone call, {dev_ms:.4f} ms of "
               f"device time per launch, plain {plain_ms:.4f} ms, bound {bounds[name][0]:.4f} ms "
               f"({bounds[name][1]}), all-pairs bound {bounds[name][2]:.4f} "
               f"ms, batch 16 at 256^2 {tag}", flush=True)
-    (ms_b, dev_b), plain_b, bound_b = time_tiles(cr, rast, *tiles_in)
+    (ms_b, dev_b), plain_b, bound_b, _ = time_tiles(cr, rast, *tiles_in)
     print(f"zbuffer_tiles on the 16 bodies ({assets.nf} faces, not its "
           f"path): kernel {ms_b:.4f} ms a lone call, {dev_b:.4f} ms of "
           f"device time per launch, "
           f"plain {plain_b:.4f} ms, bound {bound_b[0]:.4f} ms ({bound_b[1]}),"
-          f" all-pairs bound {bound_b[2]:.4f} ms, batch 16 at 256^2 {tag}",
-          flush=True)
+          f" all-pairs bound {bound_b[2]:.4f} ms, bound with the whole face "
+          f"table charged {bound_b[3]:.4f} ms, batch 16 at 256^2 {tag}", flush=True)
 
     # -- phase 3c: the renderer's tiled route (nf > 60,000) ----------------
     big = synthetic_assets(rings=24, segments=60)
@@ -563,8 +631,11 @@ def main():
         cr, rast, f2v_big, tcap, tb, tsp)
     check(torch.equal(fim_big, fim_bk) and torch.equal(wim_big, wim_bk),
           "tiled route differs from zbuffer_tiles on its slots")
-    errs["zbuffer_tiles"] = max(errs["zbuffer_tiles"], err_big)
-    ms_t, plain_t, bound_t = time_tiles(cr, rast, *big_in)
+    _, err_bt, cov_bt, _ = slots_vs_plain(cr, rast, tie_slots(
+        dev, tb, 16 + tcap, 16), tb)
+    check(cov_bt > 0.05, f"tie scene coverage {cov_bt}")
+    errs["zbuffer_tiles"] = max(errs["zbuffer_tiles"], err_big, err_bt)
+    ms_t, plain_t, bound_t, cands = time_tiles(cr, rast, *big_in)
     timing["zbuffer_tiles"], bounds["zbuffer_tiles"] = (ms_t, plain_t), bound_t
     check(cov_big > 0.02, f"63k-face bodies cover {cov_big}")
     st_big = {k: v.tolist() for k, v in r_big.tile_stats(f2v_big).items()}
@@ -572,13 +643,32 @@ def main():
           f"{r_big.tile_params()}, launches {tiled_launches}, fim equal to "
           f"the twin's, max |dw| {err_big}, coverage {cov_big:.4f}; "
           f"tile_stats max_tile_occupancy {st_big['max_tile_occupancy']}, "
-          f"dropped_pairs {st_big['dropped_pairs']}", flush=True)
+          f"dropped_pairs {st_big['dropped_pairs']}; tie scene (16 items, "
+          f"{16 + tcap} slots): fim equal, max |dw| {err_bt}", flush=True)
     print(f"zbuffer_tiles on its path ({big.nf} faces): kernel "
           f"{ms_t[0]:.4f} ms a lone call, {ms_t[1]:.4f} ms of device time "
           f"per launch, plain "
           f"{plain_t:.4f} ms, bound {bound_t[0]:.4f} ms ({bound_t[1]}), "
-          f"all-pairs bound {bound_t[2]:.4f} ms, batch 16 at 256^2 {tag}",
-          flush=True)
+          f"all-pairs bound {bound_t[2]:.4f} ms, bound with the whole face "
+          f"table charged {bound_t[3]:.4f} ms, batch 16 at 256^2 {tag}", flush=True)
+    print(f"zbuffer_tiles' live (tile, slot) pairs on its path: {cands[0]}; "
+          f"with a pixel of the tile in the face's pixel bbox {cands[1]} "
+          f"({cands[1] / cands[0]:.4f}); passing the inside test at a pixel "
+          f"of the tile {cands[2]} ({cands[2] / cands[0]:.4f}): an exact "
+          f"tile cull keeps at least the latter", flush=True)
+    split = route_split(lambda: rast.rasterize_fim_wim_tiled(
+        f2v_big, GEOM["s"], rast.DEFAULT_NEAR, rast.DEFAULT_FAR, tb, tcap,
+        tsp))
+    if split is None:
+        print("tiled route split: the profiler saw no device activity; not "
+              "measured")
+    else:
+        print(f"tiled route, device time of one rasterize_fim_wim_tiled "
+              f"(mean of 10): slot build (_tiled_candidates: sort, "
+              f"searchsorted, gathers) {split[0]:.4f} ms, zbuffer_tiles "
+              f"{split[1]:.4f} ms, the kernel "
+              f"{split[1] / (split[0] + split[1]):.3f} of the route, batch "
+              f"16 at 256^2 {tag}", flush=True)
 
     # -- phase 4: the slice at full width ----------------------------------
     cfg = TestConfig(image_size=GEOM["s"], repeat_num=6)

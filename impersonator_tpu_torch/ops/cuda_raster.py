@@ -39,7 +39,9 @@ inputs, walks the same candidates with the same float operations in the
 same order and the same tie-break, and so returns the same bits.
 ``launches`` on each wrapper counts kernel launches.
 :func:`bucket_warp_masks_plain` mirrors the bucket kernel's exact warp
-cull (which faces each warp of a tile tests), for the tests.
+cull (which faces each warp of a tile tests), and
+:func:`zbuffer_tiles_split_plain` the fixed-slot kernel's split of a
+tile's slots across teams of warps, for the tests.
 """
 
 from __future__ import annotations
@@ -556,26 +558,73 @@ def zbuffer_bucket_flow_plain(verts, fid, srcxy, starts, s: int, tile: int,
     return _zbuffer_plain(verts, fid, srcxy, starts, s, tile, span, near, far)
 
 
+def _live_slots(packed, cand, valid):
+    nf = packed.shape[1]
+    return (valid != 0) & (cand >= 0) & (cand < nf)
+
+
 def zbuffer_tiles_plain(packed, cand, valid, s: int, tile: int, near: float,
                         far: float):
     """Plain PyTorch twin of :func:`zbuffer_tiles`: the Pallas body's
     arithmetic (divisions by wsum and by each vertex depth) over every
     slot up to the last live one, chunk by chunk, lowest slot on ties."""
+    _, _, best_i, best_w = _tiles_minima(packed, cand,
+                                         _live_slots(packed, cand, valid), s,
+                                         tile, near, far)
+    return _untile(best_i, s, tile), _untile(best_w, s, tile)
+
+
+def zbuffer_tiles_split_plain(packed, cand, valid, s: int, tile: int,
+                              near: float, far: float, parts: int = 4):
+    """The split of :func:`zbuffer_tiles`' kernel in plain PyTorch, for the
+    tests: each tile's live slots, listed in slot order, are walked in
+    ``parts`` contiguous shares (share p from position p·n//parts of the
+    tile's n, as the kernel cuts a dense tile's list among its teams),
+    and the shares' minima are merged by (z, slot). Returns the serial
+    twin's bits."""
+    live = _live_slots(packed, cand, valid)
+    pos = torch.cumsum(live.int(), -1) - 1          # place in the list
+    n = live.sum(-1, keepdim=True)
+    share = torch.zeros_like(pos)
+    for p in range(1, parts):
+        share += (pos >= torch.div(p * n, parts, rounding_mode="floor")).int()
+    best = None
+    for p in range(parts):
+        got = _tiles_minima(packed, cand, live & (share == p), s, tile, near,
+                            far)
+        if best is None:
+            best = got
+            continue
+        z, sl, i, w = got
+        bz, bs, bi, bw = best
+        better = (z < bz) | ((z == bz) & (sl < bs))
+        best = (torch.where(better, z, bz), torch.where(better, sl, bs),
+                torch.where(better, i, bi),
+                torch.where(better[..., None], w, bw))
+    return _untile(best[2], s, tile), _untile(best[3], s, tile)
+
+
+def _tiles_minima(packed, cand, live, s, tile, near, far):
+    """Each pixel's (z, slot) minimum over the slots ``live`` marks, in
+    tile layout: (z (B, T, P) with far where none hits, slot (B, T, P)
+    with int32 max where none hits, face id (B, T, P) int32 (-1), weights
+    (B, T, P, 3)). Slots are walked in order, chunk by chunk, the lowest
+    slot keeping equal z."""
     b, nf = packed.shape[0], packed.shape[1]
     dev = packed.device
     g = s // tile
     n_tiles, npx = g * g, tile * tile
-    live = (valid != 0) & (cand >= 0) & (cand < nf)
     used = torch.nonzero(live.reshape(-1, live.shape[-1]).any(0))
     m = int(used.max()) + 1 if used.numel() else 0
     xi, yi, xp, yp = _tile_pixels(s, tile, dev)
     sf = float(s)
 
+    big = torch.iinfo(torch.int32).max
     best_z = torch.full((b, n_tiles, npx), far, device=dev)
+    best_s = torch.full((b, n_tiles, npx), big, dtype=torch.int32, device=dev)
     best_i = torch.full((b, n_tiles, npx), -1, dtype=torch.int32, device=dev)
     best_w = torch.zeros((b, n_tiles, npx, 3), device=dev)
     bidx = torch.arange(b, device=dev)[:, None, None]
-    big = torch.iinfo(torch.int32).max
     chunk = max(1, _PLAIN_BLOCK // max(1, b * n_tiles * npx))
     for c0 in range(0, m, chunk):
         ids = cand[..., c0:c0 + chunk]                  # (B, T, C)
@@ -606,5 +655,6 @@ def zbuffer_tiles_plain(packed, cand, valid, s: int, tile: int, near: float,
                              torch.stack([pick(w0), pick(w1), pick(w2)], -1),
                              best_w)
         best_i = torch.where(better, lid, best_i)
+        best_s = torch.where(better, (li + c0).int(), best_s)
         best_z = torch.where(better, lz, best_z)
-    return _untile(best_i, s, tile), _untile(best_w, s, tile)
+    return best_z, best_s, best_i, best_w

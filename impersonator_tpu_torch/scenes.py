@@ -51,3 +51,37 @@ def degenerate_scene(s, seed=3):
     rand = np.concatenate([xy, rng.uniform(1.5, 3.0, (200, 3, 1))], -1)
     fv = np.concatenate([deg, rand])
     return np.stack([fv, fv[rng.permutation(len(fv))]]).astype(np.float32)
+
+
+def tie_scene(s, tile, slots=304, live=0.7, batch=2, seed=5,
+              stray_ids=True, shapes=6):
+    """Fixed-slot inputs (packed (B, nf, 9) float32, cand and valid
+    (B, (s/tile)², slots) int32, numpy) whose winners are decided by exact
+    depth ties: ``shapes`` coplanar triangles at z = 2, each repeated
+    under 40 face ids, listed in every tile's slots in random order with a share
+    ``live`` of the slots live, so that faces of equal depth sit on both
+    sides of every share boundary of the kernel's split. With
+    ``stray_ids`` some live slots name no face (-1 or past the table)."""
+    rng = np.random.default_rng(seed)
+    n_base, copies = shapes, 40
+    tri = rng.uniform(-0.3, 0.3, (n_base, 1, 2)) \
+        + rng.uniform(-1.0, 1.0, (n_base, 3, 2))
+    # the vertex order the inside test passes: edge 0's function >= 0 at
+    # the centroid
+    c = tri.mean(1)
+    t0 = ((c[:, 1] - tri[:, 0, 1]) * (tri[:, 1, 0] - tri[:, 0, 0])
+          - (c[:, 0] - tri[:, 0, 0]) * (tri[:, 1, 1] - tri[:, 0, 1]))
+    tri[t0 < 0] = tri[t0 < 0][:, ::-1]
+    faces = np.repeat(tri, copies, 0)[rng.permutation(n_base * copies)]
+    fv = np.concatenate([faces, np.full(faces.shape[:2] + (1,), 2.0)], -1)
+    nf = fv.shape[0]
+    packed = np.broadcast_to(fv.reshape(1, nf, 9), (batch, nf, 9))
+    n_tiles = (s // tile) ** 2
+    cand = rng.integers(0, nf, (batch, n_tiles, slots))
+    valid = rng.random((batch, n_tiles, slots)) < live
+    if stray_ids:
+        stray = rng.random(cand.shape) < 0.02
+        cand = np.where(stray, rng.choice([-1, nf, nf + 7], cand.shape),
+                        cand)
+    return (np.ascontiguousarray(packed, np.float32), cand.astype(np.int32),
+            valid.astype(np.int32))

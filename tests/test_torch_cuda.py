@@ -14,7 +14,7 @@ from impersonator_tpu_torch.assets import bench_assets
 from impersonator_tpu_torch.ops import cuda_raster
 from impersonator_tpu_torch.ops import rasterizer as rast
 from impersonator_tpu_torch.ops import smpl as smpl_ops
-from impersonator_tpu_torch.scenes import degenerate_scene
+from impersonator_tpu_torch.scenes import degenerate_scene, tie_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -115,7 +115,12 @@ def test_kernels_match_plain_at_tile_8():
 
 def _tiles_vs_plain(fv, cap, span=3, tile=8):
     slots = rast._tiled_candidates(fv, S, tile, cap, span, rast.DEFAULT_FAR)
-    args = (S, tile, rast.DEFAULT_NEAR, rast.DEFAULT_FAR)
+    return _slots_vs_plain(slots, tile)
+
+
+def _slots_vs_plain(slots, tile, s=S):
+    """zbuffer_tiles on the card against its twin on the same slots."""
+    args = (s, tile, rast.DEFAULT_NEAR, rast.DEFAULT_FAR)
     before = cuda_raster.zbuffer_tiles.launches
     fim_k, wim_k = cuda_raster.zbuffer_tiles(*slots, *args)
     torch.cuda.synchronize()
@@ -155,3 +160,73 @@ def test_tiles_kernel_matches_plain_on_cap_overflow():
     assert int(stats["dropped_pairs"].min()) > 0
     fim = _tiles_vs_plain(fv, 4)
     assert (fim >= 0).float().mean() > 0.05
+
+
+def _tie_slots(**kw):
+    """The tie scene's slots on the card (tests skip without one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kw.setdefault("s", S)
+    kw.setdefault("tile", 8)
+    return tuple(torch.from_numpy(a).cuda() for a in tie_scene(**kw))
+
+
+def test_tiles_kernel_matches_plain_on_ties():
+    """Equal-depth faces listed on both sides of every share boundary of
+    the kernel's split, with stray face ids: the lowest slot wins."""
+    fim = _slots_vs_plain(_tie_slots(), 8)
+    assert (fim >= 0).float().mean() > 0.05
+
+
+def test_tiles_kernel_without_live_slots():
+    """No slot live anywhere: every pixel is background."""
+    slots = _tie_slots(live=0.0)
+    fim = _slots_vs_plain(slots, 8)
+    assert (fim == -1).all()
+
+
+def test_tiles_kernel_at_full_cap():
+    """Every tile holds exactly cap = 288 live slots (the 16 oversized
+    slots dead), the most the renderer's 256² point lists."""
+    packed, cand, valid = _tie_slots(live=1.0)
+    valid[..., :16] = 0
+    fim = _slots_vs_plain((packed, cand, valid.contiguous()), 8)
+    assert (fim >= 0).float().mean() > 0.05
+
+
+@pytest.mark.parametrize("tile,slots", [(8, 700), (16, 304), (32, 304),
+                                        (4, 40)])
+def test_tiles_kernel_at_other_shapes(tile, slots):
+    """Tiles of one, four and sixteen warps' pixels per part, and more
+    slots than one staging window holds (the kernel's other paths)."""
+    fim = _slots_vs_plain(_tie_slots(tile=tile, slots=slots, batch=1), tile)
+    assert (fim >= 0).float().mean() > 0.05
+
+
+def test_tiles_kernel_on_the_tiled_route():
+    """The renderer's tiled route on four posed 63,480-face bodies at
+    256²: render_fim_wim launches the kernel once, and on its slots the
+    kernel equals its twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from impersonator_tpu_torch.assets import synthetic_assets
+    from impersonator_tpu_torch.tasks.renderer import SMPLRenderer
+    dev = torch.device("cuda")
+    big = synthetic_assets(rings=24, segments=60)
+    r = SMPLRenderer.create(big, dev, image_size=S)
+    assert r.raster_route() == "tiled"
+    params = smpl_ops.SMPLParams.from_assets(big, dev)
+    rng = np.random.default_rng(0)
+    theta = np.zeros((4, 85), np.float32)
+    theta[:, 0] = 0.9
+    theta[:, 3:75] = rng.normal(0, 0.05, (4, 72))
+    d = smpl_ops.get_details(params, torch.from_numpy(theta).to(dev),
+                             big.parents)
+    before = cuda_raster.zbuffer_tiles.launches
+    fv, fim_r, wim_r = r.render_fim_wim(d["cam"], d["verts"])
+    torch.cuda.synchronize()
+    assert cuda_raster.zbuffer_tiles.launches == before + 1
+    tile, cap, span = r.tile_params()
+    fim = _tiles_vs_plain(fv, cap, span, tile)
+    assert torch.equal(fim, fim_r)
+    assert (fim >= 0).float().mean() > 0.02
