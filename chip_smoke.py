@@ -53,15 +53,33 @@ Phases, each failing the run (exit 1) on any error:
    with the process's TF32 flags on (HMR keeps full float32 itself): the
    2048-d features within 1e-5 of their largest magnitude, which the
    same encoder run in TF32 must fail, and max |dθ| <= 1e-4;
-6. one full-leg request under torch.profiler: summed kernel time, the
-   device's idle share of the wall time, the largest kernels and the
-   z-buffer kernels' mean device time per launch
-   (full tables in chiprun_out/profile_*.txt).
+7. appearance transfer at full width (bf16): Swapper.swap_setup
+   (2 zbuffer_bucket_rows launches), swap("body") and swap("all"), which
+   must differ on the source's kept head, swap ms (CUDA events, median of
+   20), and the swapped image personalised and driven through three
+   64-frame imitate_by_smpls requests at batch 16 (4 zbuffer_bucket_flow
+   launches each);
+8. novel view at full width: Viewer.personalize (1 rows launch),
+   view_sweep of 16 yaws (1 flow launch; the body covers > 2% of the
+   pixels at yaw 0 and 90), three 64-view view_by_smpls requests with
+   random root orientations at batch 16 (4 flow launches each), views/s;
+8b. the DeepFill background (float32) with front_warp: personalize
+   seconds (first call) and one 64-frame request;
+9. float32 with TF32 off, card against CPU on the same weights:
+   swap_core on the card from the CPU's two states (preds within 1e-2),
+   the flow kernel on the CPU's rotated meshes (fim equal to the twin's,
+   flow within 1e-5) and the view tail from the CPU's raster (within
+   1e-2), DeepFill's output (within 1e-3);
+6. one full-leg request, one view_by_smpls request and one swap under
+   torch.profiler: summed kernel time, the device's idle share of the
+   wall time, the largest kernels and the z-buffer kernels' mean device
+   time per launch (full tables in chiprun_out/profile_*.txt).
 
-Each path (3c, 4, 4b) runs with every launch count set to 0 just before
-it and read just after, and fails if a kernel of the path never
-launched. The line before the last is nvidia-smi's name and power
-limit, the one before it the kernels' JSON record (with each kernel's
+Phases run in the order 1-4b, 7-9, 5, 5b, 6. Each path (3c, 4, 4b, 7,
+8, 8b) runs with every launch count set to 0 just before it and read
+just after, and fails if a kernel of the path never launched; the
+record's launches_by_path holds each path's counts. The line before the
+last is nvidia-smi's name and power limit, the one before it the kernels' JSON record (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its float operations
 over 67 TFLOP/s, the H100 SXM's published peaks, both counted on this
 run's inputs: 15 operations per (pixel, live candidate) pair whose
@@ -84,6 +102,11 @@ from pathlib import Path
 GEOM = dict(s=256, tile=16, span=2)
 TILES = (8, 288, 3)          # the renderer's tile_params() at 256², nf 12,880
 FIM_EXACT, W_TOL, T_TOL, PRED_TOL = 0, 2e-4, 1e-5, 1e-2
+# DeepFill card vs CPU, float32 without TF32 on both: outputs in [-1, 1]
+# after ~35 convolutions summed in another order
+INPAINT_TOL = 1e-3
+# share of the kept part's pixels where swap("body") and swap("all") differ
+SWAP_DIFFER = 0.9
 # HMR card vs CPU: float32 convs in another summation order (cuDNN's
 # algorithms against oneDNN's) move the 2048-d ResNet features by ~1e-6
 # of their largest magnitude; TF32's 10-bit mantissa moves them by
@@ -464,6 +487,46 @@ def target_images(n, seed):
     return np.clip(img, -1, 1).astype(np.float32)
 
 
+def to_device(state, dev):
+    """A personalised state (tensors, and the feature lists) on dev."""
+    import torch
+
+    def move(v):
+        if torch.is_tensor(v):
+            return v.to(dev)
+        if isinstance(v, (list, tuple)):
+            return type(v)(move(x) for x in v)
+        return v
+    return {k: move(v) for k, v in state.items()}
+
+
+def requests(fn, n=3):
+    """(host seconds of each of n calls of fn, each ending in a
+    synchronise; the last call's output)."""
+    import torch
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, out
+
+
+def view_coverage(viewer, vwr, euler_to_matrix, yaws):
+    """Share of the pixels the source body covers at each yaw (the fim of
+    the viewer's rotated mesh under the source camera)."""
+    import torch
+    st = viewer.src_info
+    rots = torch.stack([euler_to_matrix([0.0, y, 0.0],
+                                        device=st["verts"].device)
+                        for y in yaws])
+    mesh = vwr.rotate_verts(st["verts"], rots, torch.zeros_like(rots[:, 0]))
+    fim, _ = viewer.renderer.render_flow(st["cam"].expand(len(yaws), 3),
+                                         mesh, st["p2verts"])
+    return (fim >= 0).float().mean((1, 2)).tolist()
+
+
 def main():
     import numpy as np
     import torch
@@ -678,17 +741,11 @@ def main():
     req_thetas = np.tile(thetas[0], (64, 1))
     req_thetas[:, 3:75] += rng.normal(0, 0.05, (64, 72)).astype(np.float32)
     reset_counts(cr)
-    t0 = time.perf_counter()
-    src_info = imit.personalize(src_img, src_smpl=thetas[0])
-    torch.cuda.synchronize()
-    pers_s = time.perf_counter() - t0
+    (pers_s,), src_info = requests(lambda: imit.personalize(
+        src_img, src_smpl=thetas[0]), 1)
     rows_after_pers = cr.zbuffer_bucket_rows.launches
-    req_s = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        preds = imit.inference_by_smpls(req_thetas, batch=16)
-        torch.cuda.synchronize()
-        req_s.append(time.perf_counter() - t0)
+    req_s, preds = requests(lambda: imit.inference_by_smpls(req_thetas,
+                                                            batch=16))
     launches = read_counts(cr)
     check(rows_after_pers >= 1, "personalize launched no rows kernel")
     check(launches["zbuffer_bucket_flow"] == 3 * 4,
@@ -711,17 +768,10 @@ def main():
     imit_h.regress_smpl(tgt_imgs[:16])       # cuDNN's first-use set-up
     torch.cuda.synchronize()
     reset_counts(cr)
-    t0 = time.perf_counter()
-    src_h = imit_h.personalize(src_img)      # θ from HMR
-    torch.cuda.synchronize()
-    pers_h_s = time.perf_counter() - t0
+    (pers_h_s,), src_h = requests(lambda: imit_h.personalize(src_img),
+                                  1)                  # θ from HMR
     rows_after_pers_h = cr.zbuffer_bucket_rows.launches
-    req_h = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        preds_h = imit_h.inference(tgt_imgs, batch=16)
-        torch.cuda.synchronize()
-        req_h.append(time.perf_counter() - t0)
+    req_h, preds_h = requests(lambda: imit_h.inference(tgt_imgs, batch=16))
     launches_h = read_counts(cr)
     check(rows_after_pers_h >= 1, "personalize(src_img) launched no rows")
     check(launches_h["zbuffer_bucket_flow"] == 3 * 4,
@@ -743,11 +793,172 @@ def main():
           f"{src_cov_h:.4f}, source max |theta - mean_theta| {dev_theta:.4f}",
           flush=True)
 
-    # -- phase 5: fp32 card vs CPU -----------------------------------------
-    torch.backends.cudnn.allow_tf32 = False     # the fp32 generator's convs
-    cfg32 = TestConfig(image_size=GEOM["s"], repeat_num=6,
-                       compute_dtype="float32")
+
+    # -- phase 7: appearance transfer at full width -------------------------
+    from impersonator_tpu_torch.ops.projection import euler_to_matrix
+    from impersonator_tpu_torch.tasks import swapper as swp
+    from impersonator_tpu_torch.tasks import viewer as vwr
+    s = GEOM["s"]
+    tgt_img = np.ascontiguousarray(-src_img[:, ::-1])
+    swapper = swp.Swapper(cfg, assets=assets, device=dev)
+    reset_counts(cr)
+    (setup_s,), _ = requests(lambda: swapper.swap_setup(
+        src_img, tgt_img, thetas[0], thetas[1]), 1)
+    launches_setup = read_counts(cr)
+    check(launches_setup["zbuffer_bucket_rows"] == 2,
+          f"swap_setup launches {launches_setup}")
+    swaps = {p: swapper.swap(target_part=p) for p in ("body", "all")}
+    for p, out in swaps.items():
+        check(tuple(out.shape) == (1, s, s, 3), f"swap {p} shape {out.shape}")
+        check(bool(torch.isfinite(out).all()), f"non-finite swap {p}")
+    # part 0 of 'par' (the head): "body" leaves it to the source, "all"
+    # takes it from the target
+    kept = swapper.src_info["part"][0, ..., 0] != 0
+    n_kept = int(kept.sum())
+    check(n_kept > 0, "the source's kept part covers no pixel")
+    diff = (swaps["body"] - swaps["all"]).abs().amax(-1)[0][kept]
+    differ = float((diff > 0).float().mean())
+    check(differ >= SWAP_DIFFER, f"body and all swaps differ on {differ} "
+          f"of the kept part's {n_kept} px")
+    swap_ms = median_ms(lambda: swapper.swap(target_part="body"), 20)
+    # the appearance-transfer chain: personalise the swapped image, then
+    # drive it through a motion
+    comp_state = swapper.personalize(swaps["body"][0].cpu().numpy(),
+                                     thetas[0])
+    reset_counts(cr)
+    req_w, preds_w = requests(lambda: swapper.imitate_by_smpls(
+        comp_state, req_thetas, batch=16))
+    launches_swap = read_counts(cr)
+    check(launches_swap["zbuffer_bucket_flow"] == 3 * 4,
+          f"swapped imitation flow launches {launches_swap}")
+    check(tuple(preds_w.shape) == (64, s, s, 3) and
+          bool(torch.isfinite(preds_w).all()), "swapped imitation preds")
+    print(f"swap: swap_setup {setup_s:.3f} s (2 personalisations), launches "
+          f"{launches_setup}; swap('body') {swap_ms:.4f} ms (median of 20, "
+          f"CUDA events); the kept head covers {n_kept} px, of which "
+          f"{differ:.4f} differ between 'body' and 'all' (max "
+          f"{float(diff.max()):.4f}); swapped imitation requests "
+          f"{[round(x, 4) for x in req_w]} s for 64 frames, median "
+          f"{64 / sorted(req_w)[1]:.1f} frames/s at batch 16, launches "
+          f"{launches_swap}, bf16, 256^2 {tag}", flush=True)
+
+    # -- phase 8: novel view at full width ----------------------------------
+    viewer = vwr.Viewer(cfg, assets=assets, device=dev)
+    reset_counts(cr)
+    (pers_v_s,), _ = requests(lambda: viewer.personalize(src_img,
+                                                         thetas[0]), 1)
+    launches_pv = read_counts(cr)
+    check(launches_pv["zbuffer_bucket_rows"] == 1,
+          f"viewer personalize launches {launches_pv}")
+    yaws = [22.5 * i for i in range(16)]
+    reset_counts(cr)
+    (sweep_s,), sweep = requests(lambda: viewer.view_sweep(yaws), 1)
+    launches_sweep = read_counts(cr)
+    check(launches_sweep["zbuffer_bucket_flow"] == 1,
+          f"view_sweep launches {launches_sweep}")
+    check(tuple(sweep.shape) == (16, s, s, 3) and
+          bool(torch.isfinite(sweep).all()), "view_sweep preds")
+    covs = view_coverage(viewer, vwr, euler_to_matrix, [0.0, 90.0])
+    check(min(covs) > 0.02, f"view coverage at yaw 0 and 90: {covs}")
+    vrng = np.random.default_rng(2)
+    view_thetas = np.tile(thetas[0], (64, 1))
+    view_thetas[:, 3:6] = vrng.normal(0, 0.8, (64, 3)).astype(np.float32)
+    reset_counts(cr)
+    req_v, preds_v = requests(lambda: viewer.view_by_smpls(view_thetas,
+                                                           batch=16))
+    launches_view = read_counts(cr)
+    check(launches_view["zbuffer_bucket_flow"] == 3 * 4,
+          f"view_by_smpls launches {launches_view}")
+    check(tuple(preds_v.shape) == (64, s, s, 3) and
+          bool(torch.isfinite(preds_v).all()), "view_by_smpls preds")
+    print(f"view: personalize {pers_v_s:.3f} s, launches {launches_pv}; "
+          f"view_sweep of 16 yaws {sweep_s:.4f} s, launches "
+          f"{launches_sweep}, coverage at yaw 0 / 90 {covs[0]:.4f} / "
+          f"{covs[1]:.4f}; view_by_smpls requests "
+          f"{[round(x, 4) for x in req_v]} s for 64 views, median "
+          f"{64 / sorted(req_v)[1]:.1f} views/s at batch 16, launches "
+          f"{launches_view}, bf16, 256^2 {tag}", flush=True)
+
+    # -- phase 8b: DeepFill background, front warp ---------------------------
+    cfg_bg = TestConfig(image_size=s, repeat_num=6, bg_model="deepfill",
+                        front_warp=True)
+    imit_bg = imi.Imitator(cfg_bg, assets=assets, device=dev)
+    # yaw 180°: the synthetic body faces the camera, so the face is pasted
+    face = np.asarray([0.0, np.pi, 0.0], np.float32)
+    th_face = thetas[0].copy()
+    th_face[3:6] += face
+    face_thetas = req_thetas.copy()
+    face_thetas[:, 3:6] += face
+    reset_counts(cr)
+    (pers_bg_s,), src_bg = requests(lambda: imit_bg.personalize(
+        src_img, src_smpl=th_face), 1)
+    (req_bg_s,), preds_bg = requests(lambda: imit_bg.inference_by_smpls(
+        face_thetas, batch=16), 1)
+    launches_bg = read_counts(cr)
+    check(launches_bg["zbuffer_bucket_rows"] == 1 and
+          launches_bg["zbuffer_bucket_flow"] == 4,
+          f"DeepFill leg launches {launches_bg}")
+    check(bool(torch.isfinite(src_bg["bg"]).all()), "non-finite background")
+    check(bool(torch.isfinite(preds_bg).all()), "non-finite DeepFill preds")
+    print(f"DeepFill + front warp: personalize {pers_bg_s:.3f} s (first "
+          f"call, DeepFill fp32), background mean |x| "
+          f"{float(src_bg['bg'].abs().mean()):.4f}; one 64-frame request "
+          f"{req_bg_s:.4f} s, {64 / req_bg_s:.1f} frames/s at batch 16, "
+          f"launches {launches_bg}, 256^2 {tag}", flush=True)
+
+    # -- phase 9: fp32 (TF32 off) card vs CPU: swap, view, DeepFill ----------
+    torch.backends.cudnn.allow_tf32 = False
     cpu = torch.device("cpu")
+    cfg32 = TestConfig(image_size=s, repeat_num=6, compute_dtype="float32")
+    sw_c = swp.Swapper(cfg32, assets=assets, device=cpu)
+    sw_g = swp.Swapper(cfg32, assets=assets, device=dev)
+    sw_c.swap_setup(src_img, tgt_img, thetas[0], thetas[1])
+    pred_c = sw_c.swap(target_part="body")
+    pred_g = swp.swap_core(sw_g.nets, sw_g.renderer,
+                           to_device(sw_c.src_info, dev),
+                           to_device(sw_c.tsf_info, dev),
+                           sw_g.left_faces("body"), swp.PART_IDS["body"], [0])
+    swap_err = float((pred_g.cpu() - pred_c).abs().max())
+    check(swap_err <= PRED_TOL, f"fp32 swap card vs CPU {swap_err}")
+    vw_c = vwr.Viewer(cfg32, assets=assets, device=cpu)
+    vw_g = vwr.Viewer(cfg32, assets=assets, device=dev)
+    st_v = vw_c.personalize(src_img, thetas[0])
+    yaws4 = [0.0, 90.0, 180.0, 270.0]
+    rots = torch.stack([euler_to_matrix([0.0, y, 0.0]) for y in yaws4])
+    mesh = vwr.rotate_verts(st_v["verts"], rots, torch.zeros(4, 3))
+    cam4 = st_v["cam"].expand(4, 3)
+    fim_vc, t_vc = vw_c.renderer.render_flow(cam4, mesh, st_v["p2verts"])
+    fim_vg, t_vg = vw_g.renderer.render_flow(
+        cam4.to(dev), mesh.to(dev), st_v["p2verts"].to(dev))
+    check(torch.equal(fim_vg.cpu(), fim_vc),
+          "view kernel fim on the card differs from the CPU twin's")
+    t_v_err = float((t_vg.cpu() - t_vc).abs().max())
+    check(t_v_err <= T_TOL, f"view flow card vs CPU {t_v_err}")
+    tail_g = vwr.view_from_flow(vw_g.nets, vw_g.renderer,
+                                to_device(st_v, dev), fim_vc.to(dev),
+                                t_vc.to(dev))
+    tail_c = vwr.view_from_flow(vw_c.nets, vw_c.renderer, st_v, fim_vc,
+                                t_vc)
+    view_err = float((tail_g.cpu() - tail_c).abs().max())
+    check(view_err <= PRED_TOL, f"fp32 view tail card vs CPU {view_err}")
+    bgnet_g = imit_bg.nets.bgnet
+    bgnet_c = copy.deepcopy(bgnet_g).cpu()
+    img_n = torch.from_numpy(src_img)[None].permute(0, 3, 1, 2)
+    body = (src_bg["fim"] >= 0).float()[:, None].cpu()
+    with torch.no_grad():
+        x_g = bgnet_g(img_n.to(dev), body.to(dev), only_x=True).cpu()
+        x_c = bgnet_c(img_n, body, only_x=True)
+    inp_err = float((x_g - x_c).abs().max())
+    check(inp_err <= INPAINT_TOL, f"DeepFill card vs CPU {inp_err}")
+    print(f"cross-check fp32 (TF32 off), card vs CPU: swap_core from the "
+          f"CPU's two states max |dpred| {swap_err} (bound {PRED_TOL}); "
+          f"view kernel on the CPU's 4 rotated meshes: fim equal, max |dT| "
+          f"{t_v_err} (bound {T_TOL}); view tail on the CPU's raster max "
+          f"|dpred| {view_err} (bound {PRED_TOL}); DeepFill output max |dx| "
+          f"{inp_err} (bound {INPAINT_TOL}, mean |x| "
+          f"{float(x_c.abs().mean()):.4f})", flush=True)
+
+    # -- phase 5: fp32 card vs CPU -----------------------------------------
     ims, sts, preds = [], [], []
     for d in (dev, cpu):
         im = imi.Imitator(cfg32, assets=assets, device=d)
@@ -790,7 +1001,8 @@ def main():
         im_g.nets, st_c["img"].to(dev), {k: st_c[k].to(dev) for k in keys},
         st_c["fim"].to(dev), st_c["wim"].to(dev), st_c["p2verts"].to(dev),
         st_c["cond"].to(dev), cfg32.bg_ks, cfg32.ft_ks)
-    pred_g2 = imi.imitate_from_flow(im_g.nets, st_g2, t_c.to(dev),
+    pred_g2 = imi.imitate_from_flow(im_g.nets, im_g.renderer, st_g2,
+                                    fim_c.to(dev), t_c.to(dev),
                                     im_g.renderer.encode_fim(fim_c.to(dev)))
     pred_err = float((pred_g2.cpu() - preds[1]).abs().max())
     bg_err = float((st_g2["bg"].cpu() - st_c["bg"]).abs().max())
@@ -855,6 +1067,24 @@ def main():
                 print(f"profile: {ms / n:.4f} ms of device time per launch "
                       f"(mean) "
                       f"({n} launches) of {name[:70]}")
+        vwall, vkern, vrows = profile_request(
+            lambda: viewer.view_by_smpls(view_thetas, batch=16),
+            Path("chiprun_out") / "profile_view.txt")
+        print(f"profile, one 64-view view_by_smpls request at batch 16: wall "
+              f"{vwall:.2f} ms (profiler on), summed kernel time "
+              f"{vkern:.2f} ms, device idle {1 - vkern / vwall:.3f} of the "
+              f"wall {tag}")
+        for ms, n, name in vrows[:10]:
+            print(f"profile view: {ms:9.3f} ms {n:5d} x {name[:90]}")
+        swall, skern, srows = profile_request(
+            lambda: swapper.swap(target_part="body"),
+            Path("chiprun_out") / "profile_swap.txt")
+        print(f"profile, one swap('body') at batch 1: wall {swall:.2f} ms "
+              f"(profiler on), summed kernel time {skern:.2f} ms in "
+              f"{sum(r[1] for r in srows)} launches, device idle "
+              f"{1 - skern / swall:.3f} of the wall {tag}")
+        for ms, n, name in srows[:8]:
+            print(f"profile swap: {ms:9.3f} ms {n:5d} x {name[:90]}")
     sys.stdout.flush()
 
     # launches: each kernel's count over the path that carries it — the
@@ -862,11 +1092,20 @@ def main():
     # zbuffer_tiles
     path_launches = {**launches_h,
                      "zbuffer_tiles": tiled_launches["zbuffer_tiles"]}
+    # each path's own counts, read just after it: 4b's and 3c's above, and
+    # the appearance-transfer, novel-view and DeepFill paths
+    by_path = {"given_smpl": launches, "full_leg": launches_h,
+               "tiled_route": tiled_launches, "swap_setup": launches_setup,
+               "swap_imitate": launches_swap, "view_personalize": launches_pv,
+               "view_sweep": launches_sweep, "view_by_smpls": launches_view,
+               "deepfill_front_warp": launches_bg}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"impersonator_tpu_torch/csrc/{src}",
          "replaces": f"impersonator_tpu/ops/pallas_raster.py:{line}",
-         "launches": path_launches[name], "max_abs_err": errs[name],
+         "launches": path_launches[name],
+         "launches_by_path": {p: c[name] for p, c in by_path.items()},
+         "max_abs_err": errs[name],
          "ms": timing[name][0][0], "device_ms": timing[name][0][1],
          "plain_ms": timing[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

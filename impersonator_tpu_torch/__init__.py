@@ -14,6 +14,10 @@ Ported so far: motion imitation — ``tasks.imitator.Imitator.personalize``
 kernels: ``ops.cuda_raster.zbuffer_bucket_rows`` and
 ``zbuffer_bucket_flow`` on the bucket path, ``zbuffer_tiles`` on the
 fixed-slot tiled path that the renderer takes for meshes over 60,000
-faces. ``utils.convert`` carries generator and HMR weights over from the
-JAX param trees.
+faces. Appearance transfer (``tasks.swapper.Swapper``), novel view
+(``tasks.viewer.Viewer``) and the animator run on the same kernels, with
+the DeepFill background net (``models.inpaintor``) when ``bg_model`` is
+not ORIGINAL; ``tasks.factory.get_by_name`` builds any of these tasks.
+``utils.convert`` carries generator, HMR and DeepFill weights over from
+the JAX param trees.
 """

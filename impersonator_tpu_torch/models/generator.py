@@ -1,5 +1,5 @@
 """Liquid Warping GAN generator (torch port of
-``impersonator_tpu/models/generator.py:47-253``), NCHW.
+``impersonator_tpu/models/generator.py:47-283``), NCHW.
 
 Three streams: ``bg_model`` inpaints the background, ``src_model``
 encodes the source, ``tsf_model`` synthesises the frame, adding the
@@ -7,8 +7,9 @@ source features warped by the flow T (resized per stage) at every
 encoder stage and every residual block (the Liquid Warping Block).
 Flows are (B, H, W, 2) in [-1, 1], -2 on background.
 
-This slice ports ``run_bg``, ``encode_src`` and ``inference``; the
-training forward, ``infer_front`` and ``swap`` come with their tasks.
+Ported: ``run_bg``, ``encode_src``, ``inference`` (imitation and novel
+view), ``swap`` (appearance transfer) and ``infer_front`` (both streams
+live); the training forward comes with the trainer.
 """
 
 from __future__ import annotations
@@ -136,20 +137,54 @@ class ImpersonatorGenerator(nn.Module):
     def encode_src(self, src_inputs):
         return self.src_model.inference(src_inputs)
 
+    def _lwb_decode(self, tsf_inputs, sources):
+        """The tsf stream with the Liquid Warping Block: after every
+        encoder stage past the first and every residual block, add each
+        source's features warped by its flow, in the order given (bf16
+        rounding depends on it). sources: [(encoder outs, resnet outs,
+        t (N, H, W, 2))], the features of batch 1 or N."""
+        tsf = self.tsf_model
+        x = tsf.encoders[0](tsf_inputs)
+        enc = [x]
+        for i in range(1, self.n_down + 1):
+            x = tsf.encoders[i](x)
+            for src_enc, _, t in sources:
+                x = x + warp(src_enc[i], t)
+            enc.append(x)
+        # a source's residual-block warps share one resized flow: warp its
+        # block outputs once, channel-concatenated
+        d = x.shape[1]
+        warped = [grid_sample_nchw(torch.cat(res, dim=1),
+                                   resize_flow(t, x.shape[2], x.shape[3]))
+                  for _, res, t in sources]
+        for i in range(self.repeat_num):
+            x = tsf.resnets[i](x)
+            for w in warped:
+                x = x + w[:, i * d:(i + 1) * d]
+        return tsf.regress(tsf.decode(x, enc))
+
     def inference(self, src_encoder_outs, src_resnet_outs, tsf_inputs, t):
         """Per-frame decode against the cached (batch-1) source features.
         tsf_inputs (N, C, H, W); t (N, H, W, 2)."""
-        tsf = self.tsf_model
-        tsf_x = tsf.encoders[0](tsf_inputs)
-        tsf_enc = [tsf_x]
-        for i in range(1, self.n_down + 1):
-            tsf_x = tsf.encoders[i](tsf_x) + warp(src_encoder_outs[i], t)
-            tsf_enc.append(tsf_x)
-        # the residual-block warps share one resized flow and their sources
-        # are cached: warp them once, channel-concatenated
-        t_scale = resize_flow(t, tsf_x.shape[2], tsf_x.shape[3])
-        d = src_resnet_outs[0].shape[1]
-        warped = grid_sample_nchw(torch.cat(src_resnet_outs, dim=1), t_scale)
-        for i in range(self.repeat_num):
-            tsf_x = tsf.resnets[i](tsf_x) + warped[:, i * d:(i + 1) * d]
-        return tsf.regress(tsf.decode(tsf_x, tsf_enc))
+        return self._lwb_decode(tsf_inputs,
+                                [(src_encoder_outs, src_resnet_outs, t)])
+
+    def infer_front(self, src_inputs, tsf_inputs, t):
+        """Both streams live: the source is encoded and decoded in the same
+        pass -> (src_img, src_mask, tsf_img, tsf_mask)."""
+        src = self.src_model
+        src_enc, src_res = src.inference(src_inputs)
+        tsf_img, tsf_mask = self._lwb_decode(tsf_inputs,
+                                             [(src_enc, src_res, t)])
+        src_img, src_mask = src.regress(src.decode(src_res[-1], src_enc))
+        return src_img, src_mask, tsf_img, tsf_mask
+
+    def swap(self, tsf_inputs, src_encoder_outs12, src_encoder_outs21,
+             src_resnet_outs12, src_resnet_outs21, t12, t21):
+        """Dual-source decode for appearance transfer: the "12" features
+        warped by t12, then the "21" features by t21, added at every
+        stage. (The swapper passes the target's features as "12" with its
+        T21 and the source's as "21" with its T11.)"""
+        return self._lwb_decode(
+            tsf_inputs, [(src_encoder_outs12, src_resnet_outs12, t12),
+                         (src_encoder_outs21, src_resnet_outs21, t21)])

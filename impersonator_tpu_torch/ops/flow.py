@@ -27,6 +27,17 @@ def correspondence_flow(src_f2pts, dst_fim, dst_wim):
     return torch.where(covered[..., None], t, BG_FLOW)
 
 
+def identity_flow(batch: int, image_size: int, device=None,
+                  dtype=torch.float32):
+    """Identity sampling grid (B, S, S, 2) in [-1, 1], (x, y) order, on
+    the reference's ``i / (S - 1)`` grid (create_meshgrid)."""
+    f = (torch.arange(image_size, dtype=dtype, device=device)
+         / (image_size - 1) - 0.5) * 2.0
+    yv, xv = torch.meshgrid(f, f, indexing="ij")
+    grid = torch.stack([xv, yv], dim=-1)
+    return grid.expand(batch, image_size, image_size, 2)
+
+
 def face_visibility(fim, nf: int):
     """(B, H, W) fim -> (B, nf) bool: the face appears in the map."""
     b = fim.shape[0]
@@ -41,6 +52,12 @@ def visible_f2pts(f2pts, fim):
     """Keep only faces visible in fim; the others get BG_FLOW."""
     vis = face_visibility(fim, f2pts.shape[1])
     return torch.where(vis[:, :, None, None], f2pts, BG_FLOW)
+
+
+def null_visible_f2pts(f2pts, fim):
+    """Null the faces visible in fim (BG_FLOW); keep the others."""
+    vis = face_visibility(fim, f2pts.shape[1])
+    return torch.where(vis[:, :, None, None], BG_FLOW, f2pts)
 
 
 def encode_fim(fim, map_fn):

@@ -1,11 +1,13 @@
 """Camera / projection helpers for the renderer (torch port of
-``impersonator_tpu/ops/projection.py:17-60``)."""
+``impersonator_tpu/ops/projection.py:17-60, 117-133``)."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+
+from impersonator_tpu_torch.utils.precision import full_fp32
 
 
 def eye_z(viewing_angle_deg: float = 30.0) -> float:
@@ -33,3 +35,21 @@ def look_at_on_axis(vertices: torch.Tensor,
     shift = torch.tensor([0.0, 0.0, eye_z_value], dtype=vertices.dtype,
                          device=vertices.device)
     return vertices + shift
+
+
+def euler_to_matrix(rt, deg: bool = True,
+                    device=None) -> torch.Tensor:
+    """Euler angles (3,) -> rotation matrix (3, 3) float32,
+    R = Rz @ Ry @ Rx (the reference's euler2matrix); degrees unless
+    ``deg`` is false."""
+    rt = torch.as_tensor(rt, dtype=torch.float32, device=device)
+    if deg:
+        rt = rt * (math.pi / 180.0)
+    cx, cy, cz = torch.cos(rt)
+    sx, sy, sz = torch.sin(rt)
+    one, zero = torch.ones_like(cx), torch.zeros_like(cx)
+    rx = torch.stack([one, zero, zero, zero, cx, -sx, zero, sx, cx])
+    ry = torch.stack([cy, zero, sy, zero, one, zero, -sy, zero, cy])
+    rz = torch.stack([cz, -sz, zero, sz, cz, zero, zero, zero, one])
+    with full_fp32():
+        return rz.reshape(3, 3) @ ry.reshape(3, 3) @ rx.reshape(3, 3)

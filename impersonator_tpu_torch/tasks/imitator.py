@@ -2,21 +2,23 @@
 ``impersonator_tpu/tasks/imitator.py:67-293, 300-487, 663-693``).
 
 * :func:`personalize_core` — once per source: SMPL -> raster (fim, wim)
-  -> conditioning -> morphology masks -> background inpainting and the
-  source-feature cache;
+  -> conditioning -> morphology masks -> background inpainting (the
+  generator's BG stream, or the DeepFill net when ``bg_model`` is not
+  ORIGINAL) and the source-feature cache;
 * :func:`imitate_core` — per frame batch: SMPL -> fused raster + flow ->
-  warp of the source image -> cached-feature LWB decode -> compositing;
+  warp of the source image -> cached-feature LWB decode -> compositing,
+  and with ``front_warp`` the warped source face pasted over the head;
 * :class:`Imitator` — ``personalize`` (from a given θ, or HMR's),
   ``inference_by_smpls`` and ``inference`` (HMR on each target image,
   then imitation).
 
 Tensors at these functions are NHWC, flows (B, H, W, 2), as in the JAX
-package; the generator runs NCHW and the transpose happens at its call.
+package; the networks run NCHW and the transpose happens at their call.
 Dtype policy: generator params and feature inputs in the compute dtype
 (bf16 by default), flows float32, outputs float32, the source-image warp
-in the compute dtype; HMR and the geometry in float32. The detector,
-front warp and the inpainting background net are not ported yet, and
-asking for them raises.
+in the compute dtype; HMR, the DeepFill net and the geometry in float32.
+The MaskRCNN detector is not ported (its weights are not in the
+repository), and asking for it raises.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from impersonator_tpu_torch.assets import SMPLAssets
 from impersonator_tpu_torch.config import TestConfig
 from impersonator_tpu_torch.models.generator import ImpersonatorGenerator
 from impersonator_tpu_torch.models.hmr import HumanModelRecovery, init_hmr
+from impersonator_tpu_torch.models.inpaintor import (InpaintSANet,
+                                                     init_inpaintor)
 from impersonator_tpu_torch.models.layers import init_weights
 from impersonator_tpu_torch.ops import morphology
 from impersonator_tpu_torch.ops import smpl as smpl_ops
@@ -46,22 +50,31 @@ from impersonator_tpu_torch.utils.cv_utils import resize_img_hwc
 # randomly initialised Imitator still renders a body. Loaded weights
 # replace it all.
 RANDOM_HMR_FC3_SCALE = 5e-5
+# Random He-normal DeepFill weights halve the activations at every gated
+# layer (the sigmoid gate), so the 35-layer net's output comes out ~1e-6
+# and a random background is flat. 1.8× on the feature convs keeps the
+# activations O(0.1) through the net (seed 0, [-1, 1] images).
+RANDOM_BGNET_GAIN = 1.8
 
 
 @dataclasses.dataclass
 class ImitatorNets:
     """The networks of the task. The given-SMPL path never calls HMR, so
-    ``hmr`` may be None."""
+    ``hmr`` may be None; ``bgnet`` (DeepFill) is there only when
+    ``bg_model`` is not ORIGINAL."""
 
     generator: ImpersonatorGenerator
     hmr: Optional[nn.Module] = None
+    bgnet: Optional[InpaintSANet] = None
 
 
 def build_nets(cfg: TestConfig, assets: SMPLAssets) -> ImitatorNets:
     """Randomly initialised networks (float32, CPU), seeded by cfg.seed;
     the same seed gives the same weights on every device. HMR starts its
     IEF from ``assets.mean_theta`` and has its fc3 weights scaled by
-    :data:`RANDOM_HMR_FC3_SCALE`."""
+    :data:`RANDOM_HMR_FC3_SCALE`; the DeepFill net is built when
+    ``cfg.bg_model`` is not ORIGINAL, its feature convs scaled by
+    :data:`RANDOM_BGNET_GAIN`."""
     cond_nc = 3  # uv_seg conditioning
     gen = ImpersonatorGenerator(bg_dim=4, src_dim=3 + cond_nc,
                                 tsf_dim=3 + cond_nc,
@@ -70,7 +83,11 @@ def build_nets(cfg: TestConfig, assets: SMPLAssets) -> ImitatorNets:
     init_weights(gen, rng)
     hmr = HumanModelRecovery()
     init_hmr(hmr, rng, assets.mean_theta, fc3_scale=RANDOM_HMR_FC3_SCALE)
-    return ImitatorNets(gen, hmr)
+    bgnet = None
+    if cfg.bg_model != "ORIGINAL":
+        bgnet = InpaintSANet(c_dim=4)
+        init_inpaintor(bgnet, rng, feature_gain=RANDOM_BGNET_GAIN)
+    return ImitatorNets(gen, hmr, bgnet)
 
 
 def _to_net(x, dtype):
@@ -108,9 +125,11 @@ def swap_smpl(src_cam, src_shape, tgt_smpl, first_cam,
 def personalize_core(nets: ImitatorNets, renderer: SMPLRenderer,
                      smpl_params: smpl_ops.SMPLParams, parents, img,
                      src_theta, bg_ks: int, ft_ks: int,
-                     only_vis: bool = False, compute_dtype=torch.float32):
+                     only_vis: bool = False, compute_dtype=torch.float32,
+                     ext_body_mask=None):
     """img (1, S, S, 3) in [-1, 1], src_theta (1, 85) -> the cached source
-    state."""
+    state. ``ext_body_mask`` (1, S, S, 1), a detector's body mask, takes
+    the place of the eroded silhouette for the background."""
     info = smpl_ops.get_details(smpl_params, src_theta, parents)
     f2verts, fim, wim = renderer.render_fim_wim(info["cam"], info["verts"])
     p2verts = renderer.f2pts_from_f2verts(f2verts)
@@ -118,18 +137,31 @@ def personalize_core(nets: ImitatorNets, renderer: SMPLRenderer,
         p2verts = renderer.get_vis_f2pts(p2verts, fim)
     cond = renderer.encode_fim(fim)
     return personalize_from_raster(nets, img, info, fim, wim, p2verts, cond,
-                                   bg_ks, ft_ks, compute_dtype)
+                                   bg_ks, ft_ks, compute_dtype,
+                                   ext_body_mask)
 
 
 @torch.no_grad()
 def personalize_from_raster(nets: ImitatorNets, img, info, fim, wim,
                             p2verts, cond, bg_ks: int, ft_ks: int,
-                            compute_dtype=torch.float32):
+                            compute_dtype=torch.float32,
+                            ext_body_mask=None):
     """Everything of :func:`personalize_core` after the rasterizer."""
     gen = nets.generator
-    bg_mask = morphology.morph(cond[..., -1:], ks=bg_ks, mode="erode")
-    bg_inputs = torch.cat([img * bg_mask, bg_mask], dim=-1)
-    bg_img = _from_net(gen.run_bg(_to_net(bg_inputs, compute_dtype)))
+    if ext_body_mask is not None:
+        body_mask = ext_body_mask
+        bg_mask = 1.0 - body_mask
+    else:
+        bg_mask = morphology.morph(cond[..., -1:], ks=bg_ks, mode="erode")
+        body_mask = 1.0 - bg_mask
+    if nets.bgnet is not None:
+        # DeepFill's refined output over the whole frame, not its composite
+        bg_img = _from_net(nets.bgnet(_to_net(img, torch.float32),
+                                      _to_net(body_mask, torch.float32),
+                                      only_x=True))
+    else:
+        bg_inputs = torch.cat([img * bg_mask, bg_mask], dim=-1)
+        bg_img = _from_net(gen.run_bg(_to_net(bg_inputs, compute_dtype)))
     ft_mask = 1.0 - morphology.morph(cond[..., -1:], ks=ft_ks, mode="erode")
     src_inputs = torch.cat([img * ft_mask, cond], dim=-1)
     # cached NCHW in the compute dtype, as the decode consumes them
@@ -145,39 +177,66 @@ def personalize_from_raster(nets: ImitatorNets, img, info, fim, wim,
 @torch.no_grad()
 def imitate_with_swap_core(nets, renderer, smpl_params, parents, src_state,
                            tgt_smpls, first_cam, cam_strategy: str = "smooth",
+                           front_warp: bool = False,
                            compute_dtype=torch.float32):
     """Cam/shape swap, then one imitation step."""
     tsf = swap_smpl(src_state["cam"], src_state["shape"], tgt_smpls,
                     first_cam, cam_strategy)
     return imitate_core(nets, renderer, smpl_params, parents, src_state, tsf,
-                        compute_dtype)
+                        front_warp, compute_dtype)
 
 
 @torch.no_grad()
 def imitate_core(nets: ImitatorNets, renderer: SMPLRenderer,
                  smpl_params: smpl_ops.SMPLParams, parents, src_state,
-                 tsf_theta, compute_dtype=torch.float32):
+                 tsf_theta, front_warp: bool = False,
+                 compute_dtype=torch.float32):
     """tsf_theta (N, 85), already swapped -> preds (N, S, S, 3) in
     [-1, 1]."""
     info = smpl_ops.get_details(smpl_params, tsf_theta, parents)
     fim, t = renderer.render_flow(info["cam"], info["verts"],
                                   src_state["p2verts"])
     cond = renderer.encode_fim(fim)
-    return imitate_from_flow(nets, src_state, t, cond, compute_dtype)
+    return imitate_from_flow(nets, renderer, src_state, fim, t, cond,
+                             front_warp, compute_dtype)
 
 
 @torch.no_grad()
-def imitate_from_flow(nets: ImitatorNets, src_state, t, cond,
+def imitate_from_raster(nets: ImitatorNets, renderer: SMPLRenderer,
+                        src_state, fim, wim, cond, front_warp: bool = False,
+                        compute_dtype=torch.float32):
+    """The imitation tail from classic (fim, wim) raster products: the
+    flow from them, then :func:`imitate_from_flow`."""
+    t = renderer.cal_bc_transform(src_state["p2verts"], fim, wim)
+    return imitate_from_flow(nets, renderer, src_state, fim, t, cond,
+                             front_warp, compute_dtype)
+
+
+@torch.no_grad()
+def imitate_from_flow(nets: ImitatorNets, renderer: SMPLRenderer,
+                      src_state, fim, t, cond, front_warp: bool = False,
                       compute_dtype=torch.float32):
     """After raster + flow: warp the (batch-1) source image, decode
-    against the cached features, composite over the background."""
-    src_img = _to_net(src_state["img"], compute_dtype)
-    tsf_img = grid_sample_nchw(src_img, t)
+    against the cached features, composite over the background; with
+    ``front_warp`` paste the warped source image over the target's face
+    (fim's front faces) where the mask lets the generator's colour
+    through."""
+    tsf_img = grid_sample_nchw(_to_net(src_state["img"], compute_dtype), t)
     tsf_inputs = torch.cat([tsf_img, _to_net(cond, compute_dtype)], dim=1)
     enc, res = src_state["feats"]
     color, mask = nets.generator.inference(enc, res, tsf_inputs, t)
     color, mask = _from_net(color), _from_net(mask)
-    return mask * src_state["bg"] + (1.0 - mask) * color
+    preds = mask * src_state["bg"] + (1.0 - mask) * color
+    if front_warp:
+        preds = paste_front(renderer, preds, fim, _from_net(tsf_img), mask)
+    return preds
+
+
+def paste_front(renderer: SMPLRenderer, preds, fim, img, mask):
+    """(1 - front) · preds + img · front · (1 - mask), front the face
+    mask of fim."""
+    front = renderer.encode_front_fim(fim)
+    return (1 - front) * preds + img * front * (1 - mask)
 
 
 class Imitator:
@@ -185,21 +244,22 @@ class Imitator:
     per request, on one device (``device``, default CUDA; there is no CPU
     fallback).
 
-    The geometry and HMR run in full float32 on their own
-    (``utils.precision.full_fp32``); the Imitator leaves the process's
-    TF32 flags as it finds them."""
+    The geometry, HMR and the DeepFill net run in full float32 on their
+    own (``utils.precision.full_fp32``); the Imitator leaves the
+    process's TF32 flags as it finds them."""
 
     def __init__(self, cfg: TestConfig, assets: SMPLAssets | None = None,
                  nets: ImitatorNets | None = None, device="cuda"):
-        if cfg.bg_model != "ORIGINAL" or cfg.front_warp or cfg.has_detector:
+        if cfg.has_detector:
             raise NotImplementedError(
-                "the torch port runs bg_model=ORIGINAL without front_warp "
-                "or detector")
+                "has_detector needs the MaskRCNN detector, whose weights "
+                "are not in the repository")
         self.cfg = cfg
         self.device = torch.device(device)
         self.assets = assets if assets is not None else cfg.assets()
         self.renderer = SMPLRenderer.create(self.assets, self.device,
-                                            image_size=cfg.image_size)
+                                            image_size=cfg.image_size,
+                                            has_front=cfg.front_warp)
         self.smpl_params = smpl_ops.SMPLParams.from_assets(self.assets,
                                                            self.device)
         self.parents = self.assets.parents
@@ -210,8 +270,9 @@ class Imitator:
                                                              self.assets)
         self.nets.generator.to(device=self.device,
                                dtype=self.compute_dtype).eval()
-        if self.nets.hmr is not None:
-            self.nets.hmr.to(device=self.device, dtype=torch.float32).eval()
+        for net in (self.nets.hmr, self.nets.bgnet):
+            if net is not None:
+                net.to(device=self.device, dtype=torch.float32).eval()
         self.src_info = None
         self.first_cam = None
 
@@ -230,6 +291,12 @@ class Imitator:
         to regress it with HMR. As in the JAX package, HMR then sees
         ``resize_img_hwc(src_img, 224)``, which maps the [-1, 1] image
         once more by ``* 2 - 1``, to [-3, 1]."""
+        self.src_info = self._source_state(src_img, src_smpl)
+        return self.src_info
+
+    def _source_state(self, src_img, src_smpl=None):
+        """The personalised state of one source image (see
+        :meth:`personalize`), which the Imitator does not keep."""
         src_img = np.asarray(src_img, np.float32)
         img = torch.as_tensor(src_img, device=self.device)[None]
         if src_smpl is None:
@@ -237,17 +304,14 @@ class Imitator:
         else:
             theta = torch.as_tensor(np.asarray(src_smpl, np.float32),
                                     device=self.device).reshape(1, 85)
-        self.src_info = personalize_core(
+        return personalize_core(
             self.nets, self.renderer, self.smpl_params, self.parents, img,
             theta, bg_ks=self.cfg.bg_ks, ft_ks=self.cfg.ft_ks,
             only_vis=self.cfg.only_vis, compute_dtype=self.compute_dtype)
-        return self.src_info
 
     def _batches(self, frames, batch: int):
         """Frames (N, ...) array or tensor -> float32 batches of ``batch``
         on the device, the last one padded with the final frame."""
-        if self.src_info is None:
-            raise RuntimeError("call personalize() first")
         x = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
         n = x.shape[0]
         pad = (-n) % batch
@@ -255,22 +319,34 @@ class Imitator:
             x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
         return n, [x[i:i + batch] for i in range(0, n + pad, batch)]
 
-    def _imitate(self, tgt_smpls, first_cam, cam_strategy):
+    def _imitate(self, src_state, tgt_smpls, first_cam, cam_strategy):
         return imitate_with_swap_core(
             self.nets, self.renderer, self.smpl_params, self.parents,
-            self.src_info, tgt_smpls, first_cam, cam_strategy,
-            self.compute_dtype)
+            src_state, tgt_smpls, first_cam, cam_strategy,
+            self.cfg.front_warp, self.compute_dtype)
+
+    def _imitate_by_smpls(self, src_state, tgt_smpls, cam_strategy, batch):
+        """Imitation of src_state driven by tgt_smpls (N, 85) in
+        fixed-size batches (the last one padded with its final pose); the
+        first θ's camera is the reference of ``smooth``."""
+        n, chunks = self._batches(tgt_smpls, batch)
+        self.first_cam = chunks[0][0:1, 0:3]
+        outs = [self._imitate(src_state, c, self.first_cam, cam_strategy)
+                for c in chunks]
+        return torch.cat(outs)[:n]
+
+    def _require_source(self):
+        if self.src_info is None:
+            raise RuntimeError("call personalize() first")
 
     def inference_by_smpls(self, tgt_smpls, cam_strategy: str = "smooth",
                            batch: int = 8):
         """tgt_smpls (N, 85) array or tensor -> preds (N, S, S, 3) on the
         Imitator's device, in fixed-size batches (the last one padded with
         its final pose)."""
-        n, chunks = self._batches(tgt_smpls, batch)
-        self.first_cam = chunks[0][0:1, 0:3]
-        outs = [self._imitate(c, self.first_cam, cam_strategy)
-                for c in chunks]
-        return torch.cat(outs)[:n]
+        self._require_source()
+        return self._imitate_by_smpls(self.src_info, tgt_smpls,
+                                      cam_strategy, batch)
 
     def inference(self, tgt_imgs224, cam_strategy: str = "smooth",
                   batch: int = 8):
@@ -278,6 +354,7 @@ class Imitator:
         preds (N, S, S, 3): per batch, HMR then the imitation step; the
         first batch's first θ gives the camera reference, and the last
         batch is padded with its final image."""
+        self._require_source()
         n, chunks = self._batches(tgt_imgs224, batch)
         outs = []
         self.first_cam = None
@@ -285,5 +362,6 @@ class Imitator:
             thetas = self.regress_smpl(chunk)
             if self.first_cam is None:
                 self.first_cam = thetas[0:1, 0:3]
-            outs.append(self._imitate(thetas, self.first_cam, cam_strategy))
+            outs.append(self._imitate(self.src_info, thetas, self.first_cam,
+                                      cam_strategy))
         return torch.cat(outs)[:n]

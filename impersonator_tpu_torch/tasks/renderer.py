@@ -1,6 +1,6 @@
 """Renderer facade: constant tables + the raster / flow / encoding calls
 every task shares (torch port of
-``impersonator_tpu/tasks/renderer.py:61-208``), with the JAX package's
+``impersonator_tpu/tasks/renderer.py:42-211``), with the JAX package's
 three-way z-buffer gate: bucket kernels, the fixed-slot tiled kernel for
 meshes over 60,000 faces, or the brute z-buffer."""
 
@@ -14,7 +14,7 @@ import torch
 from impersonator_tpu_torch.assets import SMPLAssets
 from impersonator_tpu_torch.ops import flow as flow_ops
 from impersonator_tpu_torch.ops import rasterizer as rast
-from impersonator_tpu_torch.ops.projection import DEFAULT_EYE_Z
+from impersonator_tpu_torch.ops.projection import DEFAULT_EYE_Z, eye_z
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,19 +23,31 @@ class SMPLRenderer:
 
     faces: torch.Tensor       # (nf, 3) int64
     map_fn: torch.Tensor      # (nf+1, C) conditioning encoding
+    back_map_fn: torch.Tensor  # (nf+1, 1) head minus face
+    front_map_fn: torch.Tensor | None  # (nf+1, 1) face, if has_front
     image_size: int = 256
     near: float = rast.DEFAULT_NEAR
     far: float = rast.DEFAULT_FAR
     eye_z_value: float = DEFAULT_EYE_Z
 
     @classmethod
-    def create(cls, assets: SMPLAssets, device, image_size: int = 256):
-        """The imitation renderer: uv_seg conditioning, 30° eye."""
+    def create(cls, assets: SMPLAssets, device, image_size: int = 256,
+               map_name: str = "uv_seg", has_front: bool = False,
+               viewing_angle: float = 30.0):
+        """``map_name`` picks the conditioning encoding; the front (face)
+        table is built only with ``has_front``; the eye sits at
+        1/tan(viewing_angle) + 1."""
+        def table(name):
+            return torch.as_tensor(assets.map_fn(name), device=device)
+
         return cls(
             faces=torch.as_tensor(np.asarray(assets.faces, np.int64),
                                   device=device),
-            map_fn=torch.as_tensor(assets.map_fn("uv_seg"), device=device),
+            map_fn=table(map_name),
+            back_map_fn=table("back"),
+            front_map_fn=table("front") if has_front else None,
             image_size=image_size,
+            eye_z_value=eye_z(viewing_angle),
         )
 
     def tile_params(self):
@@ -123,7 +135,7 @@ class SMPLRenderer:
         bucket = self._bucket_config()
         if bucket is None:
             _, fim, wim = self.render_fim_wim(cam, verts)
-            return fim, flow_ops.correspondence_flow(src_f2pts, fim, wim)
+            return fim, self.cal_bc_transform(src_f2pts, fim, wim)
         tile, span = bucket
         f2verts = rast.project_to_raster_space(verts, cam, self.faces,
                                                self.eye_z_value)
@@ -139,9 +151,27 @@ class SMPLRenderer:
                             device=f2verts.device)
         return f2verts[..., 0:2] * flip
 
-    def encode_fim(self, fim):
-        """fim -> conditioning map (B, S, S, C)."""
-        return flow_ops.encode_fim(fim, self.map_fn)
+    def encode_fim(self, fim, map_fn=None):
+        """fim -> (B, S, S, C) by ``map_fn``, the conditioning table by
+        default."""
+        return flow_ops.encode_fim(fim, self.map_fn if map_fn is None
+                                   else map_fn)
+
+    def encode_front_fim(self, fim, front_fn: bool = True):
+        """fim -> (B, S, S, 1) mask of the face (``front_fn``) or of the
+        back of the head."""
+        table = self.front_map_fn if front_fn else self.back_map_fn
+        if table is None:
+            raise ValueError("renderer built without the front table "
+                             "(has_front=False)")
+        return flow_ops.encode_fim(fim, table)
+
+    def cal_bc_transform(self, src_f2pts, dst_fim, dst_wim):
+        """The flow T from given raster products (correspondence_flow)."""
+        return flow_ops.correspondence_flow(src_f2pts, dst_fim, dst_wim)
 
     def get_vis_f2pts(self, f2pts, fim):
         return flow_ops.visible_f2pts(f2pts, fim)
+
+    def set_null_f2pts(self, f2pts, fim):
+        return flow_ops.null_visible_f2pts(f2pts, fim)

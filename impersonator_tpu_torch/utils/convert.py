@@ -13,7 +13,10 @@ modules use.
   (:class:`..models.hmr.HumanModelRecovery`): also Dense kernels
   (in, out) -> Linear weights (out, in), and BatchNorm ``scale``/
   ``bias`` plus ``batch_stats`` ``mean``/``var`` -> ``weight``/``bias``/
-  ``running_mean``/``running_var``.
+  ``running_mean``/``running_var``;
+* :func:`inpaintor_state_dict_from_jax` inverts ``convert_bgnet``
+  (:class:`..models.inpaintor.InpaintSANet`): biased gated and attention
+  convs, and the gated layers' BatchNorms as for HMR.
 """
 
 from __future__ import annotations
@@ -145,9 +148,16 @@ def hmr_state_dict_from_jax(tree: dict) -> dict:
     """{'params', 'batch_stats'} flax HMR tree of numpy arrays -> this
     port's HumanModelRecovery state dict (float32 CPU tensors; each
     BatchNorm's ``num_batches_tracked`` is 0, as the module starts)."""
-    perm = {"conv": (3, 2, 0, 1), "dense": (1, 0), "vec": None}
+    return _state_dict(tree, _hmr_keys(),
+                       {"conv": (3, 2, 0, 1), "dense": (1, 0), "vec": None})
+
+
+def _state_dict(tree: dict, keys, perm) -> dict:
+    """The state dict of (key, collection, flax path, kind) rows, each
+    array transposed by ``perm[kind]``; every BatchNorm gets a
+    ``num_batches_tracked`` of 0."""
     sd = {}
-    for key, coll, path, kind in _hmr_keys():
+    for key, coll, path, kind in keys:
         node = tree[coll]
         for part in path.split("/"):
             node = node[part]
@@ -159,3 +169,49 @@ def hmr_state_dict_from_jax(tree: dict) -> dict:
             sd[key[:-len("running_var")] + "num_batches_tracked"] = \
                 torch.tensor(0)
     return sd
+
+
+# flax names of the deepfill layers, in the order of the torch Sequentials;
+# the upsampling layers nest their gated conv once more
+_BGNET_LAYERS = (("coarse_net", [f"c{i}" for i in range(17)]),
+                 ("refine_conv_net", [f"r{i}" for i in range(11)]),
+                 ("refine_upsample_net", [f"u{i}" for i in range(7)]))
+_BGNET_UPSAMPLE = {"c12", "c14", "u2", "u4"}
+
+
+def _bgnet_keys():
+    """(state-dict key, collection, flax path, kind) of every deepfill
+    tensor, kind in {conv, vec}; follows convert_bgnet line by line."""
+    out = []
+    for seq, names in _BGNET_LAYERS:
+        for i, name in enumerate(names):
+            src, dst = f"{seq}.{i}", name
+            if name in _BGNET_UPSAMPLE:
+                src, dst = src + ".conv2d", dst + "/conv"
+            for t, f in (("conv2d", "conv"), ("mask_conv2d", "mask_conv")):
+                out.append((f"{src}.{t}.weight", "params",
+                            f"{dst}/{f}/kernel", "conv"))
+                out.append((f"{src}.{t}.bias", "params", f"{dst}/{f}/bias",
+                            "vec"))
+            bn = f"{src}.batch_norm2d"
+            out += [(bn + ".weight", "params", dst + "/bn/scale", "vec"),
+                    (bn + ".bias", "params", dst + "/bn/bias", "vec"),
+                    (bn + ".running_mean", "batch_stats", dst + "/bn/mean",
+                     "vec"),
+                    (bn + ".running_var", "batch_stats", dst + "/bn/var",
+                     "vec")]
+    for t in ("query", "key", "value"):
+        out.append((f"refine_attn.{t}_conv.weight", "params",
+                    f"attn/{t}/kernel", "conv"))
+        out.append((f"refine_attn.{t}_conv.bias", "params",
+                    f"attn/{t}/bias", "vec"))
+    out.append(("refine_attn.gamma", "params", "attn/gamma", "vec"))
+    return out
+
+
+def inpaintor_state_dict_from_jax(tree: dict) -> dict:
+    """{'params', 'batch_stats'} flax InpaintSANet tree of numpy arrays ->
+    this port's InpaintSANet state dict (float32 CPU tensors; each
+    BatchNorm's ``num_batches_tracked`` is 0)."""
+    return _state_dict(tree, _bgnet_keys(),
+                       {"conv": (3, 2, 0, 1), "vec": None})

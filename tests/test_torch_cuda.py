@@ -230,3 +230,89 @@ def test_tiles_kernel_on_the_tiled_route():
     fim = _tiles_vs_plain(fv, cap, span, tile)
     assert torch.equal(fim, fim_r)
     assert (fim >= 0).float().mean() > 0.02
+
+
+def _to(state, dev):
+    """A personalised state (tensors, and the feature lists) on dev."""
+    def move(v):
+        if torch.is_tensor(v):
+            return v.to(dev)
+        if isinstance(v, (list, tuple)):
+            return type(v)(move(x) for x in v)
+        return v
+    return {k: move(v) for k, v in state.items()}
+
+
+def test_swap_and_view_on_the_card_match_the_cpu():
+    """Swapper.swap and Viewer.view_sweep at 64² on the card, float32
+    with TF32 off, against the same seeded tasks on the CPU: swap_setup
+    launches zbuffer_bucket_rows twice and a view batch
+    zbuffer_bucket_flow once; the swap on the card from the CPU's two
+    states, and the views' tail from the CPU's raster, are within 1e-2 of
+    the CPU's; the flow kernel on the CPU's rotated meshes gives the CPU
+    twin's fim and its flow within 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from impersonator_tpu_torch.assets import synthetic_assets
+    from impersonator_tpu_torch.config import TestConfig
+    from impersonator_tpu_torch.ops.projection import euler_to_matrix
+    from impersonator_tpu_torch.tasks import swapper as sw
+    from impersonator_tpu_torch.tasks import viewer as vw
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    cfg = TestConfig(image_size=64, repeat_num=2, compute_dtype="float32")
+    assets = synthetic_assets()
+    rng = np.random.default_rng(3)
+    src, tgt = rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    th_src = np.zeros(85, np.float32)
+    th_src[0] = 0.9
+    th_tgt = th_src.copy()
+    th_tgt[3:75] = rng.normal(0, 0.1, 72)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        swappers, viewers = {}, {}
+        for d in (dev, cpu):
+            swappers[d] = sw.Swapper(cfg, assets, device=d)
+            rows = cuda_raster.zbuffer_bucket_rows.launches
+            swappers[d].swap_setup(src, tgt, th_src, th_tgt)
+            torch.cuda.synchronize()
+            if d == dev:
+                assert cuda_raster.zbuffer_bucket_rows.launches == rows + 2
+            viewers[d] = vw.Viewer(cfg, assets, device=d)
+            viewers[d].personalize(src, th_src)
+        s_g, s_c = swappers[dev], swappers[cpu]
+        for part in ("body", "all"):
+            out = s_g.swap(target_part=part)
+            assert out.shape == (1, 64, 64, 3) and torch.isfinite(out).all()
+            left = [i for i in sw.PART_IDS["all"]
+                    if i not in sw.PART_IDS[part]]
+            tail = sw.swap_core(s_g.nets, s_g.renderer,
+                                _to(s_c.src_info, dev), _to(s_c.tsf_info, dev),
+                                s_g.left_faces(part), sw.PART_IDS[part],
+                                left)
+            ref = s_c.swap(target_part=part)
+            assert torch.allclose(tail.cpu(), ref, rtol=0, atol=1e-2)
+
+        v_g, v_c = viewers[dev], viewers[cpu]
+        yaws = [0.0, 90.0, 180.0, 270.0]
+        flow = cuda_raster.zbuffer_bucket_flow.launches
+        views = v_g.view_sweep(yaws)
+        torch.cuda.synchronize()
+        assert cuda_raster.zbuffer_bucket_flow.launches == flow + 1
+        assert views.shape == (4, 64, 64, 3) and torch.isfinite(views).all()
+        rots = torch.stack([euler_to_matrix([0.0, y, 0.0]) for y in yaws])
+        st_c = v_c.src_info
+        mesh = vw.rotate_verts(st_c["verts"], rots, torch.zeros(4, 3))
+        cam = st_c["cam"].expand(4, 3)
+        fim_c, t_c = v_c.renderer.render_flow(cam, mesh, st_c["p2verts"])
+        fim_g, t_g = v_g.renderer.render_flow(cam.to(dev), mesh.to(dev),
+                                              st_c["p2verts"].to(dev))
+        assert torch.equal(fim_g.cpu(), fim_c)
+        assert (fim_c[1] >= 0).float().mean() > 0.02
+        assert torch.allclose(t_g.cpu(), t_c, rtol=0, atol=1e-5)
+        tail = vw.view_from_flow(v_g.nets, v_g.renderer, _to(st_c, dev),
+                                 fim_c.to(dev), t_c.to(dev))
+        ref = vw.view_from_flow(v_c.nets, v_c.renderer, st_c, fim_c, t_c)
+        assert torch.allclose(tail.cpu(), ref, rtol=0, atol=1e-2)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32

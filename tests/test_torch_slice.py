@@ -113,8 +113,13 @@ PORT_MODULES = [
     "impersonator_tpu_torch.models.layers",
     "impersonator_tpu_torch.models.generator",
     "impersonator_tpu_torch.models.hmr",
+    "impersonator_tpu_torch.models.inpaintor",
     "impersonator_tpu_torch.tasks.renderer",
     "impersonator_tpu_torch.tasks.imitator",
+    "impersonator_tpu_torch.tasks.swapper",
+    "impersonator_tpu_torch.tasks.viewer",
+    "impersonator_tpu_torch.tasks.animator",
+    "impersonator_tpu_torch.tasks.factory",
     "impersonator_tpu_torch.utils.convert",
     "impersonator_tpu_torch.utils.cv_utils",
     "impersonator_tpu_torch.assets",
@@ -155,3 +160,4 @@ def test_port_imports_no_jax():
                           text=True, timeout=120, cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "impersonator_tpu_torch.tasks.imitator" in mods
+    assert "impersonator_tpu_torch.tasks.swapper" in mods
