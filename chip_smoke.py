@@ -38,6 +38,8 @@ Phases, each failing the run (exit 1) on any error:
 4. the given-SMPL slice at full width (256², conv_dim 64, 6 res blocks,
    bf16): Imitator.personalize and three 64-frame inference_by_smpls
    requests at batch 16, with the kernels' launch counts over that run;
+   the float32 master weights the bf16 Imitator was given stay bit for
+   bit;
 4b. the image-driven leg at full width: HMR (ResNet-50 at 224², float32,
    TF32 off) + the same generator: personalize(src_img) with no given
    SMPL, then three 64-frame inference(tgt_imgs224, batch=16) requests;
@@ -65,19 +67,38 @@ Phases, each failing the run (exit 1) on any error:
    random root orientations at batch 16 (4 flow launches each), views/s;
 8b. the DeepFill background (float32) with front_warp: personalize
    seconds (first call) and one 64-frame request;
+10. test-time post-tune at full width (bf16 Imitator, float32 master,
+   Sphere20a face net, seeded): adaptive_personalize on 8 default priors
+   at batch 4 for 5 epochs (10 Adam steps, face loss on), twice, and
+   post_tune_swapper for 50 iterations on phase 7's pair, twice: seconds
+   per subject of each call, ms per tune step (CUDA events, median of
+   10), the cycle-loss history, the rows and flow launches each adds;
+   the losses are finite and inference after the tune differs from
+   inference before it. Then one float32 tune step with TF32 off on the
+   card and on the CPU from the same weights and pair batch (128², conv_dim
+   64, 6 res blocks, batch 2, face loss on; the structure anchors
+   swapped between the pairs, since the untuned generator's own output
+   makes L1(init_preds, fake) a comparison of an image with itself whose
+   gradient is the sign of rounding noise): losses within 1e-4
+   relative, gradients within 5e-2 per tensor and 2e-2 over all tensors
+   (L2, relative), and the Adam step the same on all but 1e-2 of the
+   weights;
 9. float32 with TF32 off, card against CPU on the same weights:
    swap_core on the card from the CPU's two states (preds within 1e-2),
    the flow kernel on the CPU's rotated meshes (fim equal to the twin's,
    flow within 1e-5) and the view tail from the CPU's raster (within
    1e-2), DeepFill's output (within 1e-3);
-6. one full-leg request, one view_by_smpls request and one swap under
+6. the bf16 warps of one imitation step at batch 16 (the source image
+   and the generator's feature warps), CUDA events: ops.sampler's JAX
+   arithmetic against one float32 F.grid_sample with its casts; then one
+   full-leg request, one view_by_smpls request and one swap under
    torch.profiler: summed kernel time, the device's idle share of the
    wall time, the largest kernels and the z-buffer kernels' mean device
    time per launch (full tables in chiprun_out/profile_*.txt).
 
-Phases run in the order 1-4b, 7-9, 5, 5b, 6. Each path (3c, 4, 4b, 7,
-8, 8b) runs with every launch count set to 0 just before it and read
-just after, and fails if a kernel of the path never launched; the
+Phases run in the order 1-4b, 7, 8, 8b, 10, 9, 5, 5b, 6. Each path (3c,
+4, 4b, 7, 8, 8b, 10) runs with every launch count set to 0 just before
+it and read just after, and fails if a kernel of the path never launched; the
 record's launches_by_path holds each path's counts. The line before the
 last is nvidia-smi's name and power limit, the one before it the kernels' JSON record (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its float operations
@@ -114,6 +135,13 @@ SWAP_DIFFER = 0.9
 # little: the IEF adds the features through fc3 weights scaled by 5e-5
 FEAT_RTOL, THETA_TOL = 1e-5, 1e-4
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: fp32 non-tensor, HBM3
+# one float32 tune step, card vs CPU with TF32 off: losses (float32 sums
+# in another order); the gradient in the L2 norm per tensor and over all
+# tensors (tests/test_torch_post_tune.py's bounds against JAX: this
+# net's float32 gradient is ~2e-2 per tensor from its float64 one); the
+# share of weights whose first Adam step (±lr) differs
+TUNE_LOSS_RTOL, TUNE_GRAD_RTOL, TUNE_GRAD_ALL_RTOL, TUNE_STEP_FLIPS = (
+    1e-4, 5e-2, 2e-2, 1e-2)
 # float operations of the z-buffer contract: the inside test (three edge
 # functions) for every (pixel, candidate) pair that can pass it, the
 # pixel in the face's bbox; barycentric rows 12, renormalisation 5 and
@@ -171,13 +199,51 @@ def device_ms(fn, calls=20):
     return times[len(times) // 2] / 1e3 if times else None
 
 
+def held_stream_ms(fn, calls=20):
+    """Mean device time of one fn() from CUDA events: a sleep kernel holds
+    the stream while the host queues the start event, `calls` calls of fn
+    and the end event, so no host time falls between the two events. None
+    when the stream ran dry before the host had queued them all, four
+    times over with a longer sleep each time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000          # ~10 ms at the H100's 1.98 GHz boost
+    for _ in range(4):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        held = not a.query()
+        b.synchronize()
+        if held:
+            return a.elapsed_time(b) / calls
+        cycles *= 4
+    return None
+
+
 def kernel_ms(fn):
-    """(ms, device_ms) of a kernel wrapper: the median of a lone call
-    (median_ms), as the earlier records timed the kernels, and the median
-    device time of one launch (device_ms)."""
-    dev_ms = device_ms(fn)
-    check(dev_ms is not None, "the profiler saw no z-buffer kernel")
-    return median_ms(fn, 50), dev_ms
+    """(ms, device_ms, how, held_ms) of a kernel wrapper: the median of a
+    lone call (median_ms), as the earlier records timed the kernels; the
+    device time of one launch, the median under torch.profiler
+    (device_ms, asked twice) or, where the profiler sees no z-buffer
+    kernel, held_ms; `how` names which; and held_ms, the mean device time
+    of one call from CUDA events on a held stream (held_stream_ms),
+    measured every time so that the two methods are compared in every
+    run."""
+    held = held_stream_ms(fn)
+    check(held is not None, "the held stream ran dry")
+    dev_ms, how = device_ms(fn), "profiler"
+    if dev_ms is None:
+        dev_ms = device_ms(fn)
+    if dev_ms is None:
+        dev_ms, how = held, "cuda_events_held_stream"
+        print("kernel_ms: the profiler saw no z-buffer kernel twice; device "
+              "time from CUDA events on a held stream", flush=True)
+    return median_ms(fn, 50), dev_ms, how, held
 
 
 def bound(ops, nbytes):
@@ -411,8 +477,8 @@ def bounds_of(ops, nbytes_):
 
 
 def time_tiles(cr, rast, packed, cand, valid, geo):
-    """(ms, device_ms) of zbuffer_tiles (kernel_ms), the median ms of its
-    twin on these slots, the kernel's bounds (ms, what bounds it,
+    """(ms, device_ms, how, held_ms) of zbuffer_tiles (kernel_ms), the
+    median ms of its twin on these slots, the kernel's bounds (ms, what bounds it,
     all-pairs ms, ms with the whole face table charged) and the live
     (tile, slot) pairs (tiles_work)."""
     ms = kernel_ms(lambda: cr.zbuffer_tiles(packed, cand, valid, *geo))
@@ -473,6 +539,23 @@ def profile_request(fn, out_path):
     return wall, (sum(r[0] for r in rows) if rows else None), rows
 
 
+def not_measured(x, spec):
+    """x formatted by spec, or 'not measured' for None (the profiler saw
+    no device activity)."""
+    return "not measured" if x is None else format(x, spec)
+
+
+def kernel_share(kern, wall):
+    """The summed kernel time of a profiled call and the device's idle
+    share of its wall time; 'not measured' where the profiler saw no
+    device activity."""
+    if kern is None:
+        return "summed kernel time not measured (the profiler saw no device "\
+               "activity)"
+    return (f"summed kernel time {kern:.2f} ms, device idle "
+            f"{1 - kern / wall:.3f} of the wall")
+
+
 def target_images(n, seed):
     """n stand-ins for 224² target crops in [-1, 1]: the smooth source
     pattern at random phases plus a little noise, so HMR's θ differs
@@ -525,6 +608,182 @@ def view_coverage(viewer, vwr, euler_to_matrix, yaws):
     fim, _ = viewer.renderer.render_flow(st["cam"].expand(len(yaws), 3),
                                          mesh, st["p2verts"])
     return (fim >= 0).float().mean((1, 2)).tolist()
+
+
+def warp_ms(dev, s, batch=16):
+    """Device ms (CUDA events, median of 20) of the bf16 warps of one
+    imitation step at batch 16: the source image (3 channels at s²) and
+    the generator's LWB warps of the batch-1 source features (128, 256
+    and 512 channels at s/2, s/4, s/8; the 6 residual blocks' 3,072 at
+    s/8), through ops.sampler.grid_sample_nchw (the JAX arithmetic in
+    bf16) and through one F.grid_sample in float32 with its casts (the
+    library call). Returns (port ms, library ms) summed over the warps."""
+    import torch
+    import torch.nn.functional as F
+    from impersonator_tpu_torch.ops.sampler import grid_sample_nchw
+    g = torch.Generator(device=dev).manual_seed(0)
+    port = lib = 0.0
+    for c, size in ((3, s), (128, s // 2), (256, s // 4), (512, s // 8),
+                    (3072, s // 8)):
+        x = torch.rand((1, c, size, size), generator=g, device=dev) \
+            .to(torch.bfloat16)
+        grid = torch.rand((batch, size, size, 2), generator=g,
+                          device=dev) * 2.2 - 1.1
+        port += median_ms(lambda: grid_sample_nchw(x, grid), 20)
+        lib += median_ms(lambda: F.grid_sample(
+            x.float().expand(batch, -1, -1, -1), grid, mode="bilinear",
+            padding_mode="zeros", align_corners=True).to(x.dtype), 20)
+    return port, lib
+
+
+def tensor_gaps(a, b):
+    """(largest per-tensor, all-tensor) |a - b| / |b| in the L2 norm over
+    two dicts of tensors with the same keys."""
+    import torch
+    per = max(float((a[k] - b[k]).norm() / b[k].norm()) for k in b)
+    cat = [torch.cat([d[k].flatten() for k in b]) for d in (a, b)]
+    return per, float((cat[0] - cat[1]).norm() / cat[1].norm())
+
+
+def tune_step_card_vs_cpu(imi, pt, face_cpu, assets, theta, dev):
+    """One float32 tune step (TF32 off) on the CPU and on the card from
+    the same master weights and the CPU's pair batch (128², conv_dim 64, 6
+    res blocks, batch 2, face loss on, the pairs' structure anchors
+    swapped): (loss gaps, gradient gaps, share of weights whose step
+    differs, CPU seconds)."""
+    import torch
+    from impersonator_tpu_torch.config import TestConfig
+    t0 = time.perf_counter()
+    cfg = TestConfig(image_size=128, repeat_num=6, compute_dtype="float32")
+    im_c = imi.Imitator(cfg, assets=assets, device="cpu")
+    im_c.personalize(source_image(128), src_smpl=theta)
+    batch = pt.build_meta_pairs(im_c, pt.default_prior_poses(
+        im_c.src_info["theta"], n=2))
+    batch["init_preds"] = batch["init_preds"].flip(0)
+    bg = im_c.src_info["bg"].expand(2, -1, -1, -1)
+    im_g = imi.Imitator(cfg, assets=assets, device=dev,
+                        nets=imi.ImitatorNets(copy.deepcopy(
+                            im_c.nets.generator)))
+    w0 = {k: v.detach().clone() for k, v in
+          im_c.nets.generator.named_parameters()}
+    out = []
+    for im, face, d in ((im_c, face_cpu, "cpu"),
+                        (im_g, copy.deepcopy(face_cpu).to(dev), dev)):
+        step = pt.make_tune_step(im, pt.tune_optimizer(im.nets.generator,
+                                                       2e-4), face)
+        metrics = step({k: v.to(d) for k, v in batch.items()}, bg.to(d))
+        gen = im.nets.generator
+        out.append(({k: float(v) for k, v in metrics.items()},
+                    {k: p.grad.cpu() for k, p in gen.named_parameters()
+                     if p.grad is not None},
+                    {k: p.detach().cpu() for k, p in
+                     gen.named_parameters()}))
+    cpu_s = time.perf_counter() - t0
+    (m_c, g_c, w_c), (m_g, g_g, w_g) = out
+    loss_gap = max(abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in m_c)
+    moved = sum(int((w_c[k] != w0[k]).sum()) for k in g_c)
+    flips = sum(int(((w_g[k] - w_c[k]).abs() > 1e-4).sum()) for k in g_c)
+    return m_c, loss_gap, tensor_gaps(g_g, g_c), flips / moved, cpu_s
+
+
+def post_tune_phase(cr, imi, swapper, assets, cfg, src_img, thetas,
+                    req_thetas, dev, tag):
+    """Phase 10 (module docstring); returns the launch counts of the two
+    post-tune paths."""
+    import numpy as np
+    import torch
+    from impersonator_tpu_torch.models.facenet import Sphere20a, init_facenet
+    from impersonator_tpu_torch.tasks import post_tune as pt
+    face = init_facenet(Sphere20a(), torch.Generator().manual_seed(0))
+    face.eval().requires_grad_(False)
+    imit = imi.Imitator(cfg, assets=assets, device=dev)
+    imit.personalize(src_img, src_smpl=thetas[0])
+    before = imit.inference_by_smpls(req_thetas[:16], batch=16)
+    priors = pt.default_prior_poses(imit.src_info["theta"], n=8)
+    face_g = copy.deepcopy(face).to(dev)
+    reset_counts(cr)
+    secs, hist = [], []
+    for _ in range(2):
+        t, m = requests(lambda: pt.adaptive_personalize(
+            imit, priors, epochs=5, batch_size=4, face=face_g), 1)
+        secs.append(t[0])
+        hist.append(m)
+    launches = read_counts(cr)
+    check(all(m["n_steps"] == 10 for m in hist), f"steps {hist}")
+    check(all(np.isfinite([m[k] for k in ("cyc", "str", "fid", "msk",
+                                          "total")]).all()
+              and np.isfinite(m["cyc_history"]).all() for m in hist),
+          f"non-finite post-tune losses {hist}")
+    check(hist[0]["fid"] > 0, "the face loss did not run")
+    check(launches["zbuffer_bucket_rows"] == 4 and
+          launches["zbuffer_bucket_flow"] == 2,
+          f"post-tune launches {launches}")
+    after = imit.inference_by_smpls(req_thetas[:16], batch=16)
+    diff = float((after - before).abs().max())
+    check(bool(torch.isfinite(after).all()) and diff > 1e-4,
+          f"inference after post-tune moved by {diff}")
+    # ms per tune step: a minibatch of 4 pairs, CUDA events
+    batch = pt.build_meta_pairs(imit, priors[:4])
+    bg = imit.src_info["bg"].expand(4, -1, -1, -1)
+    step = pt.make_tune_step(imit, pt.tune_optimizer(imit.nets.generator,
+                                                     2e-4), face_g)
+    step_ms = median_ms(lambda: step(batch, bg), 10)
+    print(f"post-tune (imitator): adaptive_personalize, 8 priors, batch 4, 5 "
+          f"epochs ({hist[0]['n_steps']} Adam steps, face loss on), "
+          f"{secs[0]:.3f} s per subject on the first call, {secs[1]:.3f} s "
+          f"on the second; {step_ms:.3f} ms per tune step at batch 4 "
+          f"(median of 10, CUDA events); launches over both calls "
+          f"{launches}; {cfg.image_size}^2, conv_dim 64, {cfg.repeat_num} "
+          f"res blocks, float32 master, bf16 inference {tag}", flush=True)
+    for i, m in enumerate(hist):
+        print(f"post-tune (imitator) call {i + 1}: cyc_history "
+              f"{[round(x, 5) for x in m['cyc_history']]}, last step "
+              f"{ {k: round(m[k], 5) for k in ('cyc', 'str', 'fid', 'msk', 'total')} }")
+    print(f"post-tune (imitator): inference of 16 poses after the tune "
+          f"differs from before it by up to {diff:.4f}", flush=True)
+
+    swap_before = swapper.swap(target_part="body")
+    reset_counts(cr)
+    sw_secs, sw_m = [], []
+    for _ in range(2):
+        t, m = requests(lambda: pt.post_tune_swapper(swapper, iters=50), 1)
+        sw_secs.append(t[0])
+        sw_m.append(m)
+    sw_launches = read_counts(cr)
+    check(all(np.isfinite(list(m.values())).all() for m in sw_m),
+          f"non-finite swapper tune losses {sw_m}")
+    check(sw_launches["zbuffer_bucket_rows"] == 8 and
+          sw_launches["zbuffer_bucket_flow"] == 4,
+          f"swapper post-tune launches {sw_launches}")
+    swap_after = swapper.swap(target_part="body")
+    sw_diff = float((swap_after - swap_before).abs().max())
+    check(bool(torch.isfinite(swap_after).all()) and sw_diff > 1e-4,
+          f"swap after the tune moved by {sw_diff}")
+    print(f"post-tune (swapper): post_tune_swapper, 50 iterations on the "
+          f"2-pair batch, {sw_secs[0]:.3f} s per subject on the first call, "
+          f"{sw_secs[1]:.3f} s on the second, last step "
+          f"{ {k: round(v, 5) for k, v in sw_m[1].items()} }; launches over "
+          f"both calls {sw_launches}; swap('body') after the tune differs by "
+          f"up to {sw_diff:.4f} {tag}", flush=True)
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    m_c, loss_gap, (g_per, g_all), flips, cpu_s = tune_step_card_vs_cpu(
+        imi, pt, face, assets, thetas[0], dev)
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    print(f"post-tune step card vs CPU, float32, TF32 off (128^2, conv_dim "
+          f"64, 6 res blocks, batch 2, face loss on; CPU side {cpu_s:.1f} "
+          f"s): losses {m_c}, max relative gap {loss_gap:.3e} (bound "
+          f"{TUNE_LOSS_RTOL}); gradient L2 gap per tensor {g_per:.3e} "
+          f"(bound {TUNE_GRAD_RTOL}), over all {g_all:.3e} (bound "
+          f"{TUNE_GRAD_ALL_RTOL}); weights whose Adam step differs "
+          f"{flips:.3e} of those moved (bound {TUNE_STEP_FLIPS})",
+          flush=True)
+    check(loss_gap <= TUNE_LOSS_RTOL, f"tune losses card vs CPU {loss_gap}")
+    check(g_per <= TUNE_GRAD_RTOL and g_all <= TUNE_GRAD_ALL_RTOL,
+          f"tune gradient card vs CPU {g_per}, {g_all}")
+    check(flips <= TUNE_STEP_FLIPS, f"tune step card vs CPU: {flips}")
+    return launches, sw_launches
 
 
 def main():
@@ -661,12 +920,13 @@ def main():
           f"240 coplanar faces at one depth in random slot order): fim "
           f"equal, max |dw| {err_tt}, coverage {cov_tt:.4f}", flush=True)
     errs["zbuffer_tiles"] = max(err_tb, err_tr, err_tz, err_tf, err_tt)
-    for name, ((ms, dev_ms), plain_ms) in timing.items():
+    for name, ((ms, dev_ms, dev_by, held), plain_ms) in timing.items():
         print(f"{name}: kernel {ms:.4f} ms a lone call, {dev_ms:.4f} ms of "
-              f"device time per launch, plain {plain_ms:.4f} ms, bound {bounds[name][0]:.4f} ms "
+              f"device time per launch ({dev_by}; {held:.4f} ms from CUDA events on a "
+              f"held stream), plain {plain_ms:.4f} ms, bound {bounds[name][0]:.4f} ms "
               f"({bounds[name][1]}), all-pairs bound {bounds[name][2]:.4f} "
               f"ms, batch 16 at 256^2 {tag}", flush=True)
-    (ms_b, dev_b), plain_b, bound_b, _ = time_tiles(cr, rast, *tiles_in)
+    (ms_b, dev_b, *_), plain_b, bound_b, _ = time_tiles(cr, rast, *tiles_in)
     print(f"zbuffer_tiles on the 16 bodies ({assets.nf} faces, not its "
           f"path): kernel {ms_b:.4f} ms a lone call, {dev_b:.4f} ms of "
           f"device time per launch, "
@@ -710,7 +970,8 @@ def main():
           f"{16 + tcap} slots): fim equal, max |dw| {err_bt}", flush=True)
     print(f"zbuffer_tiles on its path ({big.nf} faces): kernel "
           f"{ms_t[0]:.4f} ms a lone call, {ms_t[1]:.4f} ms of device time "
-          f"per launch, plain "
+          f"per launch ({ms_t[2]}; {ms_t[3]:.4f} ms from CUDA events on a held "
+          f"stream), plain "
           f"{plain_t:.4f} ms, bound {bound_t[0]:.4f} ms ({bound_t[1]}), "
           f"all-pairs bound {bound_t[2]:.4f} ms, bound with the whole face "
           f"table charged {bound_t[3]:.4f} ms, batch 16 at 256^2 {tag}", flush=True)
@@ -735,7 +996,10 @@ def main():
 
     # -- phase 4: the slice at full width ----------------------------------
     cfg = TestConfig(image_size=GEOM["s"], repeat_num=6)
-    imit = imi.Imitator(cfg, assets=assets, device=dev)
+    master = imi.build_nets(cfg, assets)
+    master_sd = {k: v.clone() for k, v in
+                 master.generator.state_dict().items()}
+    imit = imi.Imitator(cfg, assets=assets, nets=master, device=dev)
     rng = np.random.default_rng(0)
     src_img = source_image(GEOM["s"])
     req_thetas = np.tile(thetas[0], (64, 1))
@@ -759,7 +1023,15 @@ def main():
     print(f"slice: personalize {pers_s:.3f} s (first call), requests "
           f"{[round(x, 4) for x in req_s]} s for 64 frames, median "
           f"{fps:.1f} frames/s at batch 16, bf16, 256^2 {tag}")
-    print(f"slice: launches {launches}, source coverage {src_cov:.4f}",
+    master_same = all(
+        v.dtype == torch.float32 and torch.equal(v.cpu(), master_sd[k])
+        for k, v in master.generator.state_dict().items())
+    check(master_same, "the bf16 Imitator changed its float32 master")
+    check(imit.compute_nets.generator.tsf_model.img_reg[0].weight.dtype
+          == torch.bfloat16, "the compute copy is not bf16")
+    print(f"slice: launches {launches}, source coverage {src_cov:.4f}; the "
+          f"float32 master weights given to the bf16 Imitator are bit-"
+          f"identical after the phase ({len(master_sd)} tensors)",
           flush=True)
 
     # -- phase 4b: the image-driven leg at full width -----------------------
@@ -906,6 +1178,11 @@ def main():
           f"{req_bg_s:.4f} s, {64 / req_bg_s:.1f} frames/s at batch 16, "
           f"launches {launches_bg}, 256^2 {tag}", flush=True)
 
+    # -- phase 10: test-time post-tune at full width ------------------------
+    (pt_launches, pt_sw_launches) = post_tune_phase(
+        cr, imi, swapper, assets, cfg, src_img, thetas, req_thetas, dev,
+        tag)
+
     # -- phase 9: fp32 (TF32 off) card vs CPU: swap, view, DeepFill ----------
     torch.backends.cudnn.allow_tf32 = False
     cpu = torch.device("cpu")
@@ -1045,46 +1322,44 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False   # PyTorch's defaults
 
     # -- phase 6: where a full-leg request's device time goes --------------
+    w_port, w_lib = warp_ms(dev, GEOM["s"])
+    print(f"warps of one imitation step (batch 16, bf16, 256^2: the source "
+          f"image and the LWB feature warps): {w_port:.4f} ms in the JAX "
+          f"arithmetic (ops.sampler), {w_lib:.4f} ms through F.grid_sample "
+          f"in float32 with its casts (CUDA events, sums of medians) {tag}",
+          flush=True)
     wall, kern, rows = profile_request(
         lambda: imit_h.inference(tgt_imgs, batch=16),
         Path("chiprun_out") / "profile_full_leg.txt")
-    if kern is None:
-        print("profile: the profiler saw no device activity; kernel time "
-              "not measured")
-    else:
-        hmr_wall, hmr_kern, _ = profile_request(
-            lambda: imit_h.regress_smpl(tgt_imgs[:16]),
-            Path("chiprun_out") / "profile_hmr.txt")
-        print(f"profile, one 64-frame full-leg request at batch 16: wall "
-              f"{wall:.2f} ms (profiler on), summed kernel time "
-              f"{kern:.2f} ms, device idle {1 - kern / wall:.3f} of the "
-              f"wall; HMR alone {hmr_kern:.2f} ms of kernels per batch of "
-              f"16 {tag}")
-        for ms, n, name in rows[:12]:
-            print(f"profile: {ms:9.3f} ms {n:5d} x {name[:90]}")
-        for ms, n, name in rows:
-            if "zbuffer" in name:
-                print(f"profile: {ms / n:.4f} ms of device time per launch "
-                      f"(mean) "
-                      f"({n} launches) of {name[:70]}")
-        vwall, vkern, vrows = profile_request(
-            lambda: viewer.view_by_smpls(view_thetas, batch=16),
-            Path("chiprun_out") / "profile_view.txt")
-        print(f"profile, one 64-view view_by_smpls request at batch 16: wall "
-              f"{vwall:.2f} ms (profiler on), summed kernel time "
-              f"{vkern:.2f} ms, device idle {1 - vkern / vwall:.3f} of the "
-              f"wall {tag}")
-        for ms, n, name in vrows[:10]:
-            print(f"profile view: {ms:9.3f} ms {n:5d} x {name[:90]}")
-        swall, skern, srows = profile_request(
-            lambda: swapper.swap(target_part="body"),
-            Path("chiprun_out") / "profile_swap.txt")
-        print(f"profile, one swap('body') at batch 1: wall {swall:.2f} ms "
-              f"(profiler on), summed kernel time {skern:.2f} ms in "
-              f"{sum(r[1] for r in srows)} launches, device idle "
-              f"{1 - skern / swall:.3f} of the wall {tag}")
-        for ms, n, name in srows[:8]:
-            print(f"profile swap: {ms:9.3f} ms {n:5d} x {name[:90]}")
+    hmr_wall, hmr_kern, _ = profile_request(
+        lambda: imit_h.regress_smpl(tgt_imgs[:16]),
+        Path("chiprun_out") / "profile_hmr.txt")
+    print(f"profile, one 64-frame full-leg request at batch 16: wall "
+          f"{wall:.2f} ms (profiler on), {kernel_share(kern, wall)}; HMR "
+          f"alone {not_measured(hmr_kern, '.2f')} ms of kernels per batch "
+          f"of 16 {tag}")
+    for ms, n, name in rows[:12]:
+        print(f"profile: {ms:9.3f} ms {n:5d} x {name[:90]}")
+    for ms, n, name in rows:
+        if "zbuffer" in name:
+            print(f"profile: {ms / n:.4f} ms of device time per launch "
+                  f"(mean) ({n} launches) of {name[:70]}")
+    vwall, vkern, vrows = profile_request(
+        lambda: viewer.view_by_smpls(view_thetas, batch=16),
+        Path("chiprun_out") / "profile_view.txt")
+    print(f"profile, one 64-view view_by_smpls request at batch 16: wall "
+          f"{vwall:.2f} ms (profiler on), {kernel_share(vkern, vwall)} "
+          f"{tag}")
+    for ms, n, name in vrows[:10]:
+        print(f"profile view: {ms:9.3f} ms {n:5d} x {name[:90]}")
+    swall, skern, srows = profile_request(
+        lambda: swapper.swap(target_part="body"),
+        Path("chiprun_out") / "profile_swap.txt")
+    print(f"profile, one swap('body') at batch 1: wall {swall:.2f} ms "
+          f"(profiler on), {kernel_share(skern, swall)} in "
+          f"{sum(r[1] for r in srows)} launches {tag}")
+    for ms, n, name in srows[:8]:
+        print(f"profile swap: {ms:9.3f} ms {n:5d} x {name[:90]}")
     sys.stdout.flush()
 
     # launches: each kernel's count over the path that carries it — the
@@ -1098,7 +1373,9 @@ def main():
                "tiled_route": tiled_launches, "swap_setup": launches_setup,
                "swap_imitate": launches_swap, "view_personalize": launches_pv,
                "view_sweep": launches_sweep, "view_by_smpls": launches_view,
-               "deepfill_front_warp": launches_bg}
+               "deepfill_front_warp": launches_bg,
+               "post_tune_imitator": pt_launches,
+               "post_tune_swapper": pt_sw_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"impersonator_tpu_torch/csrc/{src}",
@@ -1107,6 +1384,8 @@ def main():
          "launches_by_path": {p: c[name] for p, c in by_path.items()},
          "max_abs_err": errs[name],
          "ms": timing[name][0][0], "device_ms": timing[name][0][1],
+         "device_ms_by": timing[name][0][2],
+         "held_stream_ms": timing[name][0][3],
          "plain_ms": timing[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "bound_ms_all_pairs": bounds[name][2], "library_ms": None}

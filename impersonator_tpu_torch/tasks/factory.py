@@ -1,8 +1,8 @@
 """Task registry (torch port of ``impersonator_tpu/tasks/factory.py:14-26``).
 
 The inference tasks are ported; the trainers and the ablation
-baselines come with the training slice (``ROADMAP.md`` Queue 1 item 10)
-and raise until then.
+baselines come with the training slice (``ROADMAP.md`` Queue 1 items 10b
+and 10c) and raise until then.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ def get_by_name(name: str, cfg, device="cuda", **kwargs):
     elif name in _TRAINERS:
         raise NotImplementedError(
             f"{name}: the trainers and baselines are not ported yet "
-            "(ROADMAP.md Queue 1 item 10, the training slice)")
+            "(ROADMAP.md Queue 1 items 10b-10c, the training slice)")
     else:
         raise ValueError(f"Model {name} not recognized.")
     return cls(cfg, device=device, **kwargs)

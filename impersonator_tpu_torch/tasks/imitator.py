@@ -14,19 +14,22 @@
 
 Tensors at these functions are NHWC, flows (B, H, W, 2), as in the JAX
 package; the networks run NCHW and the transpose happens at their call.
-Dtype policy: generator params and feature inputs in the compute dtype
-(bf16 by default), flows float32, outputs float32, the source-image warp
-in the compute dtype; HMR, the DeepFill net and the geometry in float32.
+Dtype policy (JAX's ``gen_apply``): the task keeps float32 master
+weights and runs a copy of the generator in the compute dtype (bf16 by
+default); feature inputs in the compute dtype, flows float32, outputs
+float32, the source-image warp in the compute dtype; cached source
+features are cast to the compute dtype at the decode; HMR, the DeepFill
+net and the geometry in float32.
 The MaskRCNN detector is not ported (its weights are not in the
 repository), and asking for it raises.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -223,13 +226,20 @@ def imitate_from_flow(nets: ImitatorNets, renderer: SMPLRenderer,
     through."""
     tsf_img = grid_sample_nchw(_to_net(src_state["img"], compute_dtype), t)
     tsf_inputs = torch.cat([tsf_img, _to_net(cond, compute_dtype)], dim=1)
-    enc, res = src_state["feats"]
+    enc, res = cast_feats(src_state["feats"], compute_dtype)
     color, mask = nets.generator.inference(enc, res, tsf_inputs, t)
     color, mask = _from_net(color), _from_net(mask)
     preds = mask * src_state["bg"] + (1.0 - mask) * color
     if front_warp:
         preds = paste_front(renderer, preds, fim, _from_net(tsf_img), mask)
     return preds
+
+
+def cast_feats(feats, dtype):
+    """Cached source features (encoder outs, resnet outs) in dtype, as
+    ``gen_apply``'s ``cast_in`` casts them at the decode."""
+    enc, res = feats
+    return [e.to(dtype) for e in enc], [r.to(dtype) for r in res]
 
 
 def paste_front(renderer: SMPLRenderer, preds, fim, img, mask):
@@ -244,9 +254,18 @@ class Imitator:
     per request, on one device (``device``, default CUDA; there is no CPU
     fallback).
 
-    The geometry, HMR and the DeepFill net run in full float32 on their
-    own (``utils.precision.full_fp32``); the Imitator leaves the
-    process's TF32 flags as it finds them."""
+    ``nets`` are the float32 master weights, never cast in place;
+    ``compute_nets`` holds the generator in the compute dtype, which every
+    imitation, swap and view decode runs (:meth:`refresh_compute_nets`
+    rebuilds it after the master changes). The geometry, HMR and the
+    DeepFill net run in full float32 on their own
+    (``utils.precision.full_fp32``); the Imitator leaves the process's
+    TF32 flags as it finds them."""
+
+    # The Imitator personalises in the compute dtype, as JAX's does; the
+    # Swapper and Viewer personalise in float32 with the master (JAX's
+    # personalise jits of those tasks pass no compute dtype).
+    source_in_compute_dtype = True
 
     def __init__(self, cfg: TestConfig, assets: SMPLAssets | None = None,
                  nets: ImitatorNets | None = None, device="cuda"):
@@ -268,13 +287,23 @@ class Imitator:
                               else torch.float32)
         self.nets = nets if nets is not None else build_nets(cfg,
                                                              self.assets)
-        self.nets.generator.to(device=self.device,
-                               dtype=self.compute_dtype).eval()
-        for net in (self.nets.hmr, self.nets.bgnet):
+        for net in (self.nets.generator, self.nets.hmr, self.nets.bgnet):
             if net is not None:
                 net.to(device=self.device, dtype=torch.float32).eval()
+        self.refresh_compute_nets()
         self.src_info = None
         self.first_cam = None
+
+    def refresh_compute_nets(self):
+        """Rebuild ``compute_nets`` from the float32 master: the master
+        itself under float32, else a copy of its generator cast to the
+        compute dtype (HMR and DeepFill stay the master's)."""
+        if self.compute_dtype == torch.float32:
+            self.compute_nets = self.nets
+            return
+        gen = copy.deepcopy(self.nets.generator).to(self.compute_dtype)
+        self.compute_nets = dataclasses.replace(
+            self.nets, generator=gen.requires_grad_(False))
 
     @torch.no_grad()
     def regress_smpl(self, img224):
@@ -296,18 +325,23 @@ class Imitator:
 
     def _source_state(self, src_img, src_smpl=None):
         """The personalised state of one source image (see
-        :meth:`personalize`), which the Imitator does not keep."""
-        src_img = np.asarray(src_img, np.float32)
-        img = torch.as_tensor(src_img, device=self.device)[None]
+        :meth:`personalize`; image and θ as arrays or tensors), which the
+        Imitator does not keep."""
+        img = torch.as_tensor(src_img, dtype=torch.float32,
+                              device=self.device)[None]
         if src_smpl is None:
-            theta = self.regress_smpl(resize_img_hwc(src_img, 224)[None])
+            theta = self.regress_smpl(
+                resize_img_hwc(img[0].cpu().numpy(), 224)[None])
         else:
-            theta = torch.as_tensor(np.asarray(src_smpl, np.float32),
+            theta = torch.as_tensor(src_smpl, dtype=torch.float32,
                                     device=self.device).reshape(1, 85)
+        nets, dtype = ((self.compute_nets, self.compute_dtype)
+                       if self.source_in_compute_dtype
+                       else (self.nets, torch.float32))
         return personalize_core(
-            self.nets, self.renderer, self.smpl_params, self.parents, img,
+            nets, self.renderer, self.smpl_params, self.parents, img,
             theta, bg_ks=self.cfg.bg_ks, ft_ks=self.cfg.ft_ks,
-            only_vis=self.cfg.only_vis, compute_dtype=self.compute_dtype)
+            only_vis=self.cfg.only_vis, compute_dtype=dtype)
 
     def _batches(self, frames, batch: int):
         """Frames (N, ...) array or tensor -> float32 batches of ``batch``
@@ -321,7 +355,7 @@ class Imitator:
 
     def _imitate(self, src_state, tgt_smpls, first_cam, cam_strategy):
         return imitate_with_swap_core(
-            self.nets, self.renderer, self.smpl_params, self.parents,
+            self.compute_nets, self.renderer, self.smpl_params, self.parents,
             src_state, tgt_smpls, first_cam, cam_strategy,
             self.cfg.front_warp, self.compute_dtype)
 

@@ -19,7 +19,8 @@ from impersonator_tpu_torch.config import TestConfig
 from impersonator_tpu_torch.ops import flow as flow_ops
 from impersonator_tpu_torch.ops.sampler import grid_sample_nchw
 from impersonator_tpu_torch.tasks.imitator import (Imitator, _from_net,
-                                                   _to_net, paste_front)
+                                                   _to_net, cast_feats,
+                                                   paste_front)
 from impersonator_tpu_torch.tasks.renderer import SMPLRenderer
 
 # part channels of the sorted 'par' encoding that each swap takes from
@@ -70,8 +71,8 @@ def swap_core(nets, renderer: SMPLRenderer, src_state, tgt_state,
                + tsf11 * src_left_mask[:, None].to(tsf11.dtype))
     tsf_inputs = torch.cat([tsf_img, _to_net(src_state["cond"],
                                              compute_dtype)], dim=1)
-    enc21, res21 = tgt_state["feats"]
-    enc11, res11 = src_state["feats"]
+    enc21, res21 = cast_feats(tgt_state["feats"], compute_dtype)
+    enc11, res11 = cast_feats(src_state["feats"], compute_dtype)
     color, mask = nets.generator.swap(tsf_inputs, enc21, enc11, res21, res11,
                                       t21, t11)
     color, mask = _from_net(color), _from_net(mask)
@@ -87,7 +88,9 @@ class Swapper(Imitator):
     transfers the target's appearance onto the source, and
     ``imitate_by_smpls`` drives a personalised state (such as the
     swapped image's) through a motion. On one device (``device``, default
-    CUDA; no CPU fallback)."""
+    CUDA; no CPU fallback). Personalises in float32 with the master."""
+
+    source_in_compute_dtype = False
 
     def __init__(self, cfg: TestConfig, assets=None, nets=None,
                  device="cuda"):
@@ -135,9 +138,9 @@ class Swapper(Imitator):
             raise RuntimeError("call swap_setup() first")
         selected = PART_IDS[target_part]
         left = [i for i in PART_IDS["all"] if i not in selected]
-        return swap_core(self.nets, self.renderer, src_info, tgt_info,
-                         self.left_faces(target_part), selected, left,
-                         self.cfg.front_warp, self.compute_dtype)
+        return swap_core(self.compute_nets, self.renderer, src_info,
+                         tgt_info, self.left_faces(target_part), selected,
+                         left, self.cfg.front_warp, self.compute_dtype)
 
     def imitate_by_smpls(self, src_state, tgt_smpls,
                          cam_strategy: str = "copy", batch: int = 8):

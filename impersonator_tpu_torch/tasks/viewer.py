@@ -15,6 +15,7 @@ import torch
 from impersonator_tpu_torch.ops import smpl as smpl_ops
 from impersonator_tpu_torch.ops.projection import euler_to_matrix
 from impersonator_tpu_torch.tasks.imitator import Imitator, imitate_from_flow
+from impersonator_tpu_torch.tasks.post_tune import adaptive_personalize
 from impersonator_tpu_torch.tasks.renderer import SMPLRenderer
 from impersonator_tpu_torch.utils.precision import full_fp32
 
@@ -57,7 +58,10 @@ def view_from_flow(nets, renderer, src_state, fim, t, bg_replace=False,
 class Viewer(Imitator):
     """``personalize`` once (it keeps the source's vertices), then
     ``view``, ``view_sweep`` or ``view_by_smpls``. On one device
-    (``device``, default CUDA; no CPU fallback)."""
+    (``device``, default CUDA; no CPU fallback). Personalises in float32
+    with the master."""
+
+    source_in_compute_dtype = False
 
     def personalize(self, img, smpl=None):
         """img (S, S, 3) in [-1, 1]; smpl (85,) θ, or None for HMR's."""
@@ -69,9 +73,9 @@ class Viewer(Imitator):
 
     def _view(self, rot_mats, trans):
         self._require_source()
-        return view_core(self.nets, self.renderer, self.src_info, rot_mats,
-                         trans, self.cfg.bg_replace, self.cfg.front_warp,
-                         self.compute_dtype)
+        return view_core(self.compute_nets, self.renderer, self.src_info,
+                         rot_mats, trans, self.cfg.bg_replace,
+                         self.cfg.front_warp, self.compute_dtype)
 
     def view(self, rt, t):
         """One view: Euler angles rt (degrees) and translation t, as the
@@ -117,8 +121,13 @@ class Viewer(Imitator):
                 for i in range(0, n + pad, batch)]
         return torch.cat(outs)[:n]
 
-    def post_personalize(self, *args, **kwargs):
-        raise NotImplementedError(
-            "post-tune needs the VGG and face losses, Adam and a backward "
-            "pass through infer_front; it comes with the training slice "
-            "(ROADMAP.md Queue 1 item 10)")
+    def post_personalize(self, prior_smpls=None, epochs: int = 5,
+                         lr: float = 2e-4):
+        """Post-tune with the Imitator's recipe
+        (:func:`..post_tune.adaptive_personalize`, no face loss), then the
+        source's vertices again, which the refresh does not keep."""
+        metrics = adaptive_personalize(self, prior_smpls, epochs=epochs,
+                                       lr=lr)
+        self.src_info["verts"] = smpl_ops.get_details(
+            self.smpl_params, self.src_info["theta"], self.parents)["verts"]
+        return metrics

@@ -16,7 +16,11 @@ modules use.
   ``running_mean``/``running_var``;
 * :func:`inpaintor_state_dict_from_jax` inverts ``convert_bgnet``
   (:class:`..models.inpaintor.InpaintSANet`): biased gated and attention
-  convs, and the gated layers' BatchNorms as for HMR.
+  convs, and the gated layers' BatchNorms as for HMR;
+* :func:`sphere20a_state_dict_from_jax`, :func:`senet50_state_dict_from_jax`
+  and :func:`vgg19_state_dict_from_jax` invert ``convert_sphere``,
+  ``convert_senet50`` and ``convert_vgg19`` (:mod:`..models.facenet`,
+  :class:`..models.losses.Vgg19`).
 """
 
 from __future__ import annotations
@@ -215,3 +219,100 @@ def inpaintor_state_dict_from_jax(tree: dict) -> dict:
     BatchNorm's ``num_batches_tracked`` is 0)."""
     return _state_dict(tree, _bgnet_keys(),
                        {"conv": (3, 2, 0, 1), "vec": None})
+
+
+# Sphere20a's residual pairs: flax "<pair>a" / "<pair>b" are the reference's
+# two convs (convert_weights._SPHERE_PAIRS)
+_SPHERE_PAIRS = {
+    "conv1_2": ("1_2", "1_3"), "conv2_2": ("2_2", "2_3"),
+    "conv2_4": ("2_4", "2_5"), "conv3_2": ("3_2", "3_3"),
+    "conv3_4": ("3_4", "3_5"), "conv3_6": ("3_6", "3_7"),
+    "conv3_8": ("3_8", "3_9"), "conv4_2": ("4_2", "4_3"),
+}
+
+
+def _sphere_keys():
+    """(state-dict key, collection, flax path, kind) of every Sphere20a
+    tensor; follows convert_sphere line by line."""
+    out = []
+
+    def unit(src, dst):
+        out.append((f"conv{src}.weight", "params", dst + "/conv/kernel",
+                    "conv"))
+        out.append((f"conv{src}.bias", "params", dst + "/conv/bias", "vec"))
+        out.append((f"relu{src}.weight", "params", dst + "/prelu/alpha",
+                    "vec"))
+
+    for stage in ("1_1", "2_1", "3_1", "4_1"):
+        unit(stage, "conv" + stage)
+    for ours, (a, b) in _SPHERE_PAIRS.items():
+        unit(a, ours + "a")
+        unit(b, ours + "b")
+    out.append(("fc5.weight", "params", "fc5/kernel", "dense"))
+    out.append(("fc5.bias", "params", "fc5/bias", "vec"))
+    return out
+
+
+def sphere20a_state_dict_from_jax(tree: dict) -> dict:
+    """{'params'} flax Sphere20a tree of numpy arrays -> this port's
+    Sphere20a state dict (float32 CPU tensors)."""
+    return _state_dict(tree, _sphere_keys(),
+                       {"conv": (3, 2, 0, 1), "dense": (1, 0), "vec": None})
+
+
+def _senet_keys(layers=(3, 4, 6, 3)):
+    """(state-dict key, collection, flax path, kind) of every SENet50
+    tensor; follows convert_senet50 line by line."""
+    out = []
+
+    def bn(src, dst):
+        out.extend([(src + ".weight", "params", dst + "/scale", "vec"),
+                    (src + ".bias", "params", dst + "/bias", "vec"),
+                    (src + ".running_mean", "batch_stats", dst + "/mean",
+                     "vec"),
+                    (src + ".running_var", "batch_stats", dst + "/var",
+                     "vec")])
+
+    def conv(src, dst, bias=False):
+        out.append((src + ".weight", "params", dst + "/kernel", "conv"))
+        if bias:
+            out.append((src + ".bias", "params", dst + "/bias", "vec"))
+
+    conv("conv1", "conv1")
+    bn("bn1", "bn1")
+    for li, nb in enumerate(layers, start=1):
+        for bi in range(nb):
+            src, dst = f"layer{li}.{bi}", f"layer{li}_{bi}"
+            for k in (1, 2, 3):
+                conv(f"{src}.conv{k}", f"{dst}/conv{k}")
+                bn(f"{src}.bn{k}", f"{dst}/bn{k}")
+            conv(f"{src}.conv4", f"{dst}/conv4", bias=True)
+            conv(f"{src}.conv5", f"{dst}/conv5", bias=True)
+            if bi == 0:     # every layer's first block downsamples
+                conv(f"{src}.downsample.0", f"{dst}/downsample_conv")
+                bn(f"{src}.downsample.1", f"{dst}/downsample_bn")
+    return out
+
+
+def senet50_state_dict_from_jax(tree: dict) -> dict:
+    """{'params', 'batch_stats'} flax SENet50 tree of numpy arrays -> this
+    port's SENet50 state dict (float32 CPU tensors; each BatchNorm's
+    ``num_batches_tracked`` is 0)."""
+    return _state_dict(tree, _senet_keys(),
+                       {"conv": (3, 2, 0, 1), "vec": None})
+
+
+# torchvision vgg19.features indices of the 13 convs the Vgg19 holds
+_VGG_FEATURE_IDS = (0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25, 28)
+
+
+def vgg19_state_dict_from_jax(tree: dict) -> dict:
+    """{'params'} flax Vgg19 tree of numpy arrays -> this port's Vgg19
+    state dict (float32 CPU tensors)."""
+    keys = []
+    for ours, idx in enumerate(_VGG_FEATURE_IDS):
+        keys.append((f"features.{idx}.weight", "params",
+                     f"conv_{ours}/kernel", "conv"))
+        keys.append((f"features.{idx}.bias", "params", f"conv_{ours}/bias",
+                     "vec"))
+    return _state_dict(tree, keys, {"conv": (3, 2, 0, 1), "vec": None})

@@ -114,14 +114,18 @@ PORT_MODULES = [
     "impersonator_tpu_torch.models.generator",
     "impersonator_tpu_torch.models.hmr",
     "impersonator_tpu_torch.models.inpaintor",
+    "impersonator_tpu_torch.models.facenet",
+    "impersonator_tpu_torch.models.losses",
     "impersonator_tpu_torch.tasks.renderer",
     "impersonator_tpu_torch.tasks.imitator",
     "impersonator_tpu_torch.tasks.swapper",
     "impersonator_tpu_torch.tasks.viewer",
     "impersonator_tpu_torch.tasks.animator",
     "impersonator_tpu_torch.tasks.factory",
+    "impersonator_tpu_torch.tasks.post_tune",
     "impersonator_tpu_torch.utils.convert",
     "impersonator_tpu_torch.utils.cv_utils",
+    "impersonator_tpu_torch.utils.precision",
     "impersonator_tpu_torch.assets",
     "impersonator_tpu_torch.config",
 ]

@@ -369,9 +369,13 @@ def test_view_by_smpls_matches_jax(viewers):
     np.testing.assert_allclose(preds_t.numpy(), preds_j, atol=1e-2)
 
 
-def test_viewer_post_personalize_raises(viewers):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        viewers[0].post_personalize()
+def test_viewer_post_personalize_raises(weights):
+    """Post-tune needs a personalised source (it works then:
+    tests/test_torch_post_tune.py)."""
+    viewer = TV.Viewer(_tcfg(), assets=tassets.synthetic_assets(),
+                       nets=_port_nets(weights), device="cpu")
+    with pytest.raises(RuntimeError, match="personalize"):
+        viewer.post_personalize()
 
 
 # -- animator, front warp, DeepFill ------------------------------------------
