@@ -83,6 +83,33 @@ Phases, each failing the run (exit 1) on any error:
    relative, gradients within 5e-2 per tensor and 2e-2 over all tensors
    (L2, relative), and the Adam step the same on all but 1e-2 of the
    weights;
+11. the adversarial trainer at full width (tasks/trainer.py; 256²,
+   batch 16, conv_dim 64, 6 res blocks, a 4-layer instance-norm PatchGAN,
+   VGG19 and Sphere20a losses on with seeded weights, the paper's loss
+   weights, θs as the JAX bench's train point), in bf16 and again in
+   float32 (cuDNN's default TF32): one warm-up step, then 5 timed G+D
+   steps, 1 G-only step, one eval-only step and one visuals call, with
+   the launch counts over those 8 (1 zbuffer_bucket_rows and 1
+   zbuffer_bucket_flow each); ms per step (CUDA events, median of 5),
+   samples/s, peak memory (max_memory_allocated above what the earlier
+   phases still hold), finite losses, G's and
+   D's weights moved, the float32 master and Adam's moments still
+   float32 under bf16; a profile of one bf16 step (the largest kernels,
+   the device's idle share, the z-buffers' share; full table in
+   chiprun_out/profile_train_step.txt). On the step's own bodies, the
+   raster with the kernels against the same calls on their plain twins
+   (fim equal, weights <= 2e-4, T <= 1e-5). One float32 train step with
+   TF32 off on the card and on the CPU from the same weights and the
+   CPU's raster products (128², conv_dim 64, 6 res blocks, batch 2, VGG
+   and face on): losses within 1e-4 relative, G and D gradients within
+   5e-2 per tensor and 2e-2 over all (L2; D's conv biases before an
+   instance norm, whose gradient is 0 in exact arithmetic, held below
+   1e-5 of the whole gradient instead of per tensor, and no other tensor
+   that small), the first Adam step
+   the same on all but 1e-2 of the weights. Then cli.train.main at 256²,
+   batch 16, synthetic data (64 items): 1 epoch of 4 steps, and a second
+   call that resumes with --load_epoch -1 and trains epoch 2 (checkpoint
+   files of both epochs, Adam's step count 8, 8 launches of each kernel);
 9. float32 with TF32 off, card against CPU on the same weights:
    swap_core on the card from the CPU's two states (preds within 1e-2),
    the flow kernel on the CPU's rotated meshes (fim equal to the twin's,
@@ -96,10 +123,13 @@ Phases, each failing the run (exit 1) on any error:
    wall time, the largest kernels and the z-buffer kernels' mean device
    time per launch (full tables in chiprun_out/profile_*.txt).
 
-Phases run in the order 1-4b, 7, 8, 8b, 10, 9, 5, 5b, 6. Each path (3c,
-4, 4b, 7, 8, 8b, 10) runs with every launch count set to 0 just before
-it and read just after, and fails if a kernel of the path never launched; the
-record's launches_by_path holds each path's counts. The line before the
+Phases run in the order 1-4b, 7, 8, 8b, 10, 11, 9, 5, 5b, 6. Each path
+(3c, 4, 4b, 7, 8, 8b, 10, 11's bf16, float32 and CLI runs) runs with
+every launch count set to 0 just before it and read just after, and
+fails if a kernel of the path never launched; the record's
+launches_by_path holds each path's counts ("train", "train_fp32",
+"train_cli" for phase 11). The seconds of each phase and the whole
+script's wall time are printed before the record. The line before the
 last is nvidia-smi's name and power limit, the one before it the kernels' JSON record (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its float operations
 over 67 TFLOP/s, the H100 SXM's published peaks, both counted on this
@@ -113,6 +143,7 @@ count of the earlier records); the last line is the JSON status. Weights
 are random (seeded); no checkpoint is read.
 """
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -135,8 +166,9 @@ SWAP_DIFFER = 0.9
 # little: the IEF adds the features through fc3 weights scaled by 5e-5
 FEAT_RTOL, THETA_TOL = 1e-5, 1e-4
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: fp32 non-tensor, HBM3
-# one float32 tune step, card vs CPU with TF32 off: losses (float32 sums
-# in another order); the gradient in the L2 norm per tensor and over all
+# one float32 tune step (phase 10) or train step (phase 11), card vs CPU
+# with TF32 off: losses (float32 sums in another order); the gradient in
+# the L2 norm per tensor and over all
 # tensors (tests/test_torch_post_tune.py's bounds against JAX: this
 # net's float32 gradient is ~2e-2 per tensor from its float64 one); the
 # share of weights whose first Adam step (±lr) differs
@@ -147,6 +179,18 @@ TUNE_LOSS_RTOL, TUNE_GRAD_RTOL, TUNE_GRAD_ALL_RTOL, TUNE_STEP_FLIPS = (
 # pixel in the face's bbox; barycentric rows 12, renormalisation 5 and
 # depth 6 only for the pairs that pass it
 OPS_TEST, OPS_HIT = 15, 23
+
+
+def lap(name):
+    """Close the running phase's wall-clock lap and start ``name``'s
+    (None closes the last one); LAPS holds the seconds of each."""
+    now = time.perf_counter()
+    if _LAP[1] is not None:
+        LAPS[_LAP[1]] = round(now - _LAP[0], 1)
+    _LAP[:] = [now, name]
+
+
+LAPS, _LAP = {}, [0.0, None]
 
 
 def check(cond, msg):
@@ -786,11 +830,322 @@ def post_tune_phase(cr, imi, swapper, assets, cfg, src_img, thetas,
     return launches, sw_launches
 
 
+def train_batch(s, bs, seed):
+    """A train batch of the JAX bench's train point (bench.py:427-436):
+    images U(-1, 1) (bs, 2, s, s, 3), θs with cam scale 0.9 and N(0,
+    0.03) poses (bs, 2, 85); numpy, NHWC, as the datasets give it."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    thetas = np.zeros((bs, 2, 85), np.float32)
+    thetas[..., 0] = 0.9
+    thetas[..., 3:75] = rng.normal(0, 0.03, (bs, 2, 72))
+    images = rng.uniform(-1, 1, (bs, 2, s, s, 3)).astype(np.float32)
+    return {"images": images, "smpls": thetas}
+
+
+@contextlib.contextmanager
+def plain_twins(cr):
+    """The bucket kernels' wrappers swapped for their plain twins inside
+    the block (the rasterizer calls them through the module)."""
+    saved = cr.zbuffer_bucket_rows, cr.zbuffer_bucket_flow
+    cr.zbuffer_bucket_rows = cr.zbuffer_bucket_rows_plain
+    cr.zbuffer_bucket_flow = cr.zbuffer_bucket_flow_plain
+    try:
+        yield
+    finally:
+        cr.zbuffer_bucket_rows, cr.zbuffer_bucket_flow = saved
+
+
+def train_twins(cr, smpl_ops, tt, trainer, batch):
+    """The train step's raster on its own bodies, kernels against plain
+    twins: the source's render_fim_wim (rows) and the target's
+    render_flow from the source's points (flow), then the whole
+    body_recovery_flow. Returns (max |dw|, max |dT|, body coverage,
+    body_recovery_flow's largest gap over its outputs)."""
+    import torch
+    r, params = trainer.renderer, trainer.smpl_params
+    parents = trainer.assets.parents
+    smpls, images = batch["smpls"], batch["images"]
+    src = smpl_ops.get_details(params, smpls[:, 0], parents)
+    ref = smpl_ops.get_details(params, smpls[:, 1], parents)
+
+    def raster():
+        f2v, fim, wim = r.render_fim_wim(src["cam"], src["verts"])
+        fim_f, t = r.render_flow(ref["cam"], ref["verts"],
+                                 r.f2pts_from_f2verts(f2v))
+        out = tt.body_recovery_flow(r, params, parents, images[:, 0],
+                                    images[:, 1], smpls[:, 0], smpls[:, 1])
+        torch.cuda.synchronize()
+        return fim, wim, fim_f, t, out
+
+    fim_k, wim_k, fimf_k, t_k, out_k = raster()
+    with plain_twins(cr):
+        fim_p, wim_p, fimf_p, t_p, out_p = raster()
+    n_bad = int((fim_k != fim_p).sum()) + int((fimf_k != fimf_p).sum())
+    check(n_bad == FIM_EXACT, f"train raster fim differs at {n_bad} px")
+    w_err = float((wim_k - wim_p).abs().max())
+    t_err = float((t_k - t_p).abs().max())
+    check(w_err <= W_TOL and t_err <= T_TOL,
+          f"train raster |dw| {w_err}, |dT| {t_err}")
+    for k in ("src_crop_mask", "tsf_crop_mask"):
+        check(torch.equal(out_k[k], out_p[k]), f"body_recovery_flow {k}")
+    gap = max(float((out_k[k] - out_p[k]).abs().max())
+              for k in out_k if out_k[k] is not None)
+    return w_err, t_err, float((fim_k >= 0).float().mean()), gap
+
+
+def grad_gaps(a, b, zero=()):
+    """tensor_gaps over the tensors of b but ``zero``: the biases of
+    convs feeding an instance norm, whose gradient is 0 in exact
+    arithmetic, are held below 1e-5 of b's whole norm on both sides
+    instead, and must be exactly the tensors of b that small.
+    Returns (per-tensor, all-tensor, names left out)."""
+    import torch
+    norm = float(torch.cat([v.flatten() for v in b.values()]).norm())
+    noise = [k for k, v in b.items() if float(v.norm()) <= 1e-5 * norm]
+    check(sorted(noise) == sorted(zero),
+          f"gradients below 1e-5 of the norm {noise}, expected {zero}")
+    for k in noise:
+        check(float(a[k].norm()) <= 1e-5 * norm, f"gradient of {k}")
+    per, _ = tensor_gaps({k: a[k] for k in b if k not in noise},
+                         {k: b[k] for k in b if k not in noise})
+    return per, tensor_gaps(a, b)[1], noise
+
+
+def train_step_card_vs_cpu(tt, assets, dev):
+    """One float32 train step (TF32 off) on the CPU and on the card from
+    the same weights, fresh Adam states and the CPU's raster products
+    (128², conv_dim 64, 6 res blocks, a 4-layer PatchGAN, batch 2, VGG
+    and face losses on): (CPU losses, loss gap, G gaps, D gaps, share of
+    weights whose Adam step differs, CPU seconds)."""
+    import torch
+    from impersonator_tpu_torch.config import TrainConfig
+    from impersonator_tpu_torch.data.loader import stage_batch
+    t0 = time.perf_counter()
+    cfg = TrainConfig(image_size=128, batch_size=2, repeat_num=6)
+    tr_c = tt.build_trainer(cfg, assets, device="cpu")
+    tr_g = tt.build_trainer(cfg, assets, device=dev)
+    st_c = tr_c.init_state()
+    st_g = tr_g.init_state(copy.deepcopy(st_c.generator),
+                           copy.deepcopy(st_c.discriminator))
+    b = stage_batch(train_batch(128, 2, 5), "cpu")
+    src, tsf = b["images"][:, 0], b["images"][:, 1]
+    inputs = tt.body_recovery_flow(tr_c.renderer, tr_c.smpl_params,
+                                   assets.parents, src, tsf,
+                                   b["smpls"][:, 0], b["smpls"][:, 1])
+
+    def named(st):
+        return [(f"{n}.{k}", p) for n, net in (("G", st.generator),
+                                               ("D", st.discriminator))
+                for k, p in net.named_parameters()]
+    w0 = {k: p.detach().clone() for k, p in named(st_c)}
+    out = []
+    for tr, st, d in ((tr_c, st_c, "cpu"), (tr_g, st_g, dev)):
+        inp = {k: None if v is None else v.to(d) for k, v in inputs.items()}
+        st, m = tt.make_update(tr)(st, inp, src.to(d), tsf.to(d))
+        out.append(({k: float(v) for k, v in m.items()},
+                    {k: p.grad.cpu() for k, p in named(st)},
+                    {k: p.detach().cpu() for k, p in named(st)}))
+    cpu_s = time.perf_counter() - t0
+    (m_c, g_c, w_c), (m_g, g_g, w_g) = out
+    loss_gap = max(abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in m_c
+                   if m_c[k] != 0.0)
+    # D at 4 layers: conv, leaky, (conv, norm, leaky) x 4, head conv; the
+    # convs before the norms are model.{2,5,8,11}
+    zero = {"G": (), "D": tuple(f"D.model.{i}.bias" for i in (2, 5, 8, 11))}
+    gaps = {n: grad_gaps({k: v for k, v in g_g.items() if k[0] == n},
+                         {k: v for k, v in g_c.items() if k[0] == n},
+                         zero[n])
+            for n in "GD"}
+    moved = sum(int((w_c[k] != w0[k]).sum()) for k in w0)
+    flips = sum(int(((w_g[k] - w_c[k]).abs() > 1e-4).sum()) for k in w0)
+    return m_c, loss_gap, gaps, flips / moved, cpu_s
+
+
+def cli_phase(cr, tag):
+    """cli.train.main in-process on the card at 256², batch 16, the
+    synthetic dataset (64 items: 4 steps an epoch): 1 epoch, then a
+    second call that resumes from the latest checkpoint (--load_epoch -1)
+    for epoch 2. Returns the launch counts over both calls."""
+    import tempfile
+    from impersonator_tpu_torch.cli import train as cli
+    with tempfile.TemporaryDirectory() as tmp:
+        base = ["--dataset_mode", "synthetic", "--image_size",
+                str(GEOM["s"]), "--batch_size", "16", "--nepochs_no_decay",
+                "1", "--checkpoints_dir", tmp, "--name", "smoke"]
+        reset_counts(cr)
+        t0 = time.perf_counter()
+        cli.main(base + ["--nepochs_decay", "0"])
+        t1 = time.perf_counter()
+        exp = Path(tmp) / "smoke"
+        want = {f"{k}_epoch_1_id_{l}.pth" for k in ("net", "opt")
+                for l in "GD"}
+        check(want <= set(p.name for p in exp.iterdir()),
+              f"epoch 1 files {sorted(p.name for p in exp.iterdir())}")
+        state = cli.main(base + ["--nepochs_decay", "1", "--load_epoch",
+                                 "-1"])
+        t2 = time.perf_counter()
+        launches = read_counts(cr)
+        names = set(p.name for p in exp.iterdir())
+        check({w.replace("_1_", "_2_") for w in want} <= names,
+              f"epoch 2 files {sorted(names)}")
+        p = next(state.generator.parameters())
+        n_adam = int(state.g_opt.state[p]["step"])
+        check(n_adam == 8, f"Adam steps after the resume {n_adam}")
+    check(launches["zbuffer_bucket_rows"] == 8 and
+          launches["zbuffer_bucket_flow"] == 8,
+          f"cli.train launches {launches}")
+    print(f"cli.train: epoch 1 (4 steps, batch 16, {GEOM['s']}^2, float32) "
+          f"{t1 - t0:.2f} s with set-up, checkpoint files written; resumed "
+          f"with --load_epoch -1 at epoch 1, epoch 2 (4 steps) "
+          f"{t2 - t1:.2f} s, Adam steps {n_adam}, launches over both calls "
+          f"{launches} {tag}", flush=True)
+    return launches
+
+
+def train_phase(cr, smpl_ops, assets, dev, tag):
+    """Phase 11 (module docstring); returns ({path: launch counts},
+    max |dw|, max |dT| of the kernels against their twins on the step's
+    bodies)."""
+    import numpy as np
+    import torch
+    from impersonator_tpu_torch.config import TrainConfig
+    from impersonator_tpu_torch.data.loader import stage_batch
+    from impersonator_tpu_torch.tasks import trainer as tt
+    t_phase = time.perf_counter()
+    s, bs = GEOM["s"], 16
+    batch = stage_batch(train_batch(s, bs, 3), dev)
+    by_path, twins = {}, None
+    for dtype in ("bfloat16", "float32"):
+        base = torch.cuda.memory_allocated()   # the earlier phases' tensors
+        cfg = TrainConfig(image_size=s, batch_size=bs, repeat_num=6,
+                          use_vgg=True, use_style=False, use_face=True,
+                          train_dtype=dtype)
+        tr = tt.build_trainer(cfg, assets, device=dev)
+        st = tr.init_state()
+        if twins is None:
+            twins = train_twins(cr, smpl_ops, tt, tr, batch)
+        nets = (("G", st.generator), ("D", st.discriminator))
+        w0 = {f"{n}.{k}": p.detach().clone() for n, net in nets
+              for k, p in net.named_parameters()}
+        step = tt.make_train_step(tr, train_d=True)
+        step_g = tt.make_train_step(tr, train_d=False)
+        ev = tt.make_train_step(tr, eval_only=True)
+        vis_fn = tt.make_visuals_fn(tr)
+        st, _ = step(st, batch)                    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(cr)
+        times, metrics = [], []
+        for fn in [step] * 5 + [step_g]:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            st, m = fn(st, batch)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+            metrics.append({k: float(v) for k, v in m.items()})
+        m_eval = {k: float(v) for k, v in ev(st, batch).items()}
+        visuals = vis_fn(st, batch)
+        torch.cuda.synchronize()
+        launches = read_counts(cr)
+        peak = torch.cuda.max_memory_allocated() - base
+        by_path["train" if dtype == "bfloat16" else "train_fp32"] = launches
+        check(launches["zbuffer_bucket_rows"] == 8 and
+              launches["zbuffer_bucket_flow"] == 8,
+              f"train launches {launches} (1 each a step, 8 steps)")
+        check(all(np.isfinite(list(m.values())).all()
+                  for m in metrics + [m_eval]), f"non-finite losses "
+              f"{metrics + [m_eval]}")
+        check("d_loss" not in metrics[-1] and "d_loss" in metrics[0],
+              "the G-only step's metrics")
+        check(sorted(visuals) == ["1_real_img", "2_input_tsf", "3_fake_src",
+                                  "4_fake_tsf", "5_fake_bg", "6_real_tsf",
+                                  "7_fake_mask"]
+              and all(tuple(v.shape) == (bs, s, s, 3) and
+                      bool(torch.isfinite(v).all())
+                      for v in visuals.values()), "train visuals")
+        moved = {n: [float((p.detach() != w0[f"{n}.{k}"]).float().mean())
+                     for k, p in net.named_parameters()] for n, net in nets}
+        check(min(moved["G"]) > 0.5 and float(np.mean(moved["D"])) > 0.5,
+              f"weights moved {moved}")
+        master = all(p.dtype == torch.float32 and
+                     opt.state[p]["exp_avg"].dtype == torch.float32
+                     for (_, net), opt in zip(nets, (st.g_opt, st.d_opt))
+                     for p in net.parameters())
+        check(master, f"{dtype}: the master or Adam's moments left float32")
+        ms = sorted(times[:5])[2]
+        print(f"train ({dtype}): {ms:.3f} ms per G+D step (median of 5, "
+              f"CUDA events; {[round(t, 3) for t in times[:5]]}), "
+              f"{bs / ms * 1e3:.2f} samples/s, G-only step "
+              f"{times[5]:.3f} ms; peak memory {peak / 2**30:.2f} GiB (the "
+              f"trainer's: nets, Adam, activations; above the "
+              f"{base / 2**30:.2f} GiB the earlier phases hold); "
+              f"launches over 5 G+D, 1 G-only, 1 eval, 1 visuals "
+              f"{launches}; batch 16, {s}^2, conv_dim 64, 6 res blocks, "
+              f"PatchGAN 4 layers instance, VGG19 + Sphere20a on, float32 "
+              f"master {tag}", flush=True)
+        print(f"train ({dtype}): losses step 1 "
+              f"{ {k: round(v, 5) for k, v in metrics[0].items()} }, step "
+              f"5 { {k: round(v, 5) for k, v in metrics[4].items()} }, eval "
+              f"{ {k: round(v, 5) for k, v in m_eval.items()} }; share of "
+              f"each net's weights moved: G min {min(moved['G']):.4f}, D "
+              f"mean {float(np.mean(moved['D'])):.4f}", flush=True)
+        if dtype == "bfloat16":
+            wall, kern, rows = profile_request(
+                lambda: step(st, batch),
+                Path("chiprun_out") / "profile_train_step.txt")
+            zb = sum(r[0] for r in rows if "zbuffer" in r[2])
+            print(f"profile, one bf16 train step at batch 16: wall "
+                  f"{wall:.2f} ms (profiler on), {kernel_share(kern, wall)};"
+                  f" the z-buffers {zb:.3f} ms "
+                  f"({not_measured(kern and zb / kern, '.4f')} of the "
+                  f"kernel time) {tag}", flush=True)
+            for k_ms, n, name in rows[:12]:
+                print(f"profile train: {k_ms:9.3f} ms {n:5d} x {name[:90]}")
+        del st, tr, w0
+        torch.cuda.empty_cache()
+    w_err, t_err, cov, gap = twins
+    print(f"train raster vs plain twins on the step's 16 bodies ({s}^2): "
+          f"fim equal, coverage {cov:.4f}, max |dw| {w_err}, max |dT| "
+          f"{t_err}; body_recovery_flow's largest output gap {gap}",
+          flush=True)
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    m_c, loss_gap, gaps, flips, cpu_s = train_step_card_vs_cpu(tt, assets,
+                                                                dev)
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    print(f"train step card vs CPU, float32, TF32 off (128^2, conv_dim 64, "
+          f"6 res blocks, batch 2, VGG + face on; CPU side {cpu_s:.1f} s): "
+          f"losses { {k: round(v, 5) for k, v in m_c.items()} }, max "
+          f"relative gap {loss_gap:.3e} (bound {TUNE_LOSS_RTOL}); gradient "
+          f"L2 gap per tensor / over all: G {gaps['G'][0]:.3e} / "
+          f"{gaps['G'][1]:.3e}, D {gaps['D'][0]:.3e} / {gaps['D'][1]:.3e} "
+          f"(bounds {TUNE_GRAD_RTOL} / {TUNE_GRAD_ALL_RTOL}; D's "
+          f"{gaps['D'][2]} left out per tensor: 0 in exact arithmetic); "
+          f"weights whose Adam step differs {flips:.3e} of those moved "
+          f"(bound {TUNE_STEP_FLIPS})", flush=True)
+    check(loss_gap <= TUNE_LOSS_RTOL, f"train losses card vs CPU {loss_gap}")
+    for n in "GD":
+        check(gaps[n][0] <= TUNE_GRAD_RTOL and
+              gaps[n][1] <= TUNE_GRAD_ALL_RTOL,
+              f"{n} gradient card vs CPU {gaps[n]}")
+    check(flips <= TUNE_STEP_FLIPS, f"train step card vs CPU: {flips}")
+    by_path["train_cli"] = cli_phase(cr, tag)
+    print(f"train phase: {time.perf_counter() - t_phase:.1f} s of wall time",
+          flush=True)
+    return by_path, w_err, t_err
+
+
 def main():
     import numpy as np
     import torch
+    t_start = time.perf_counter()
 
     # -- phase 1: the card -------------------------------------------------
+    lap("1")
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     from impersonator_tpu_torch.assets import bench_assets, synthetic_assets
     from impersonator_tpu_torch.config import TestConfig
@@ -809,6 +1164,7 @@ def main():
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # -- phase 2: build ----------------------------------------------------
+    lap("2")
     t0 = time.perf_counter()
     log = cr.build()
     build_s = time.perf_counter() - t0
@@ -818,6 +1174,7 @@ def main():
     print(f"build: {build_s:.2f} s (nvcc + load) {tag}", flush=True)
 
     # -- phase 3: kernels vs plain twins -----------------------------------
+    lap("3")
     assets = bench_assets()
     params = smpl_ops.SMPLParams.from_assets(assets, dev)
     renderer = SMPLRenderer.create(assets, dev, image_size=GEOM["s"])
@@ -883,6 +1240,7 @@ def main():
     }
 
     # -- phase 3b: zbuffer_tiles vs its plain twin -------------------------
+    lap("3b")
     check(renderer.tile_params() == TILES,
           f"renderer tile_params {renderer.tile_params()}")
     tile8, cap, tspan = TILES
@@ -935,6 +1293,7 @@ def main():
           f"table charged {bound_b[3]:.4f} ms, batch 16 at 256^2 {tag}", flush=True)
 
     # -- phase 3c: the renderer's tiled route (nf > 60,000) ----------------
+    lap("3c")
     big = synthetic_assets(rings=24, segments=60)
     r_big = SMPLRenderer.create(big, dev, image_size=GEOM["s"])
     check(r_big.raster_route() == "tiled",
@@ -995,6 +1354,7 @@ def main():
               f"16 at 256^2 {tag}", flush=True)
 
     # -- phase 4: the slice at full width ----------------------------------
+    lap("4")
     cfg = TestConfig(image_size=GEOM["s"], repeat_num=6)
     master = imi.build_nets(cfg, assets)
     master_sd = {k: v.clone() for k, v in
@@ -1035,6 +1395,7 @@ def main():
           flush=True)
 
     # -- phase 4b: the image-driven leg at full width -----------------------
+    lap("4b")
     imit_h = imi.Imitator(cfg, assets=assets, device=dev)   # HMR included
     tgt_imgs = torch.from_numpy(target_images(64, 1)).to(dev)
     imit_h.regress_smpl(tgt_imgs[:16])       # cuDNN's first-use set-up
@@ -1067,6 +1428,7 @@ def main():
 
 
     # -- phase 7: appearance transfer at full width -------------------------
+    lap("7")
     from impersonator_tpu_torch.ops.projection import euler_to_matrix
     from impersonator_tpu_torch.tasks import swapper as swp
     from impersonator_tpu_torch.tasks import viewer as vwr
@@ -1115,6 +1477,7 @@ def main():
           f"{launches_swap}, bf16, 256^2 {tag}", flush=True)
 
     # -- phase 8: novel view at full width ----------------------------------
+    lap("8")
     viewer = vwr.Viewer(cfg, assets=assets, device=dev)
     reset_counts(cr)
     (pers_v_s,), _ = requests(lambda: viewer.personalize(src_img,
@@ -1152,6 +1515,7 @@ def main():
           f"{launches_view}, bf16, 256^2 {tag}", flush=True)
 
     # -- phase 8b: DeepFill background, front warp ---------------------------
+    lap("8b")
     cfg_bg = TestConfig(image_size=s, repeat_num=6, bg_model="deepfill",
                         front_warp=True)
     imit_bg = imi.Imitator(cfg_bg, assets=assets, device=dev)
@@ -1179,11 +1543,19 @@ def main():
           f"launches {launches_bg}, 256^2 {tag}", flush=True)
 
     # -- phase 10: test-time post-tune at full width ------------------------
+    lap("10")
     (pt_launches, pt_sw_launches) = post_tune_phase(
         cr, imi, swapper, assets, cfg, src_img, thetas, req_thetas, dev,
         tag)
 
+    # -- phase 11: the adversarial trainer at full width --------------------
+    lap("11")
+    train_launches, w_tr, t_tr = train_phase(cr, smpl_ops, assets, dev, tag)
+    errs["zbuffer_bucket_rows"] = max(errs["zbuffer_bucket_rows"], w_tr)
+    errs["zbuffer_bucket_flow"] = max(errs["zbuffer_bucket_flow"], t_tr)
+
     # -- phase 9: fp32 (TF32 off) card vs CPU: swap, view, DeepFill ----------
+    lap("9")
     torch.backends.cudnn.allow_tf32 = False
     cpu = torch.device("cpu")
     cfg32 = TestConfig(image_size=s, repeat_num=6, compute_dtype="float32")
@@ -1236,6 +1608,7 @@ def main():
           f"{float(x_c.abs().mean()):.4f})", flush=True)
 
     # -- phase 5: fp32 card vs CPU -----------------------------------------
+    lap("5")
     ims, sts, preds = [], [], []
     for d in (dev, cpu):
         im = imi.Imitator(cfg32, assets=assets, device=d)
@@ -1293,6 +1666,7 @@ def main():
           flush=True)
 
     # -- phase 5b: HMR card vs CPU ------------------------------------------
+    lap("5b")
     # both TF32 flags on for the process: HMR keeps its own convs and
     # matmuls in full float32; its encoder called outside that scope shows
     # what TF32 would do to the features
@@ -1322,6 +1696,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False   # PyTorch's defaults
 
     # -- phase 6: where a full-leg request's device time goes --------------
+    lap("6")
     w_port, w_lib = warp_ms(dev, GEOM["s"])
     print(f"warps of one imitation step (batch 16, bf16, 256^2: the source "
           f"image and the LWB feature warps): {w_port:.4f} ms in the JAX "
@@ -1375,7 +1750,7 @@ def main():
                "view_sweep": launches_sweep, "view_by_smpls": launches_view,
                "deepfill_front_warp": launches_bg,
                "post_tune_imitator": pt_launches,
-               "post_tune_swapper": pt_sw_launches}
+               "post_tune_swapper": pt_sw_launches, **train_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"impersonator_tpu_torch/csrc/{src}",
@@ -1395,6 +1770,10 @@ def main():
             ("zbuffer_tiles", "zbuffer_tiles.cu", 146))]}
     check(all(k["launches"] > 0 for k in record["kernels"]),
           f"a kernel never launched on its path: {path_launches}")
+    lap(None)
+    print(f"chip_smoke: seconds of wall time by phase {LAPS}", flush=True)
+    print(f"chip_smoke: whole script {time.perf_counter() - t_start:.1f} s "
+          f"of wall time, the kernels' build included {tag}", flush=True)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

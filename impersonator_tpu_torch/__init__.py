@@ -18,6 +18,9 @@ faces. Appearance transfer (``tasks.swapper.Swapper``), novel view
 (``tasks.viewer.Viewer``) and the animator run on the same kernels, with
 the DeepFill background net (``models.inpaintor``) when ``bg_model`` is
 not ORIGINAL; ``tasks.factory.get_by_name`` builds any of these tasks.
-``utils.convert`` carries generator, HMR and DeepFill weights over from
-the JAX param trees.
+Test-time post-tune is ``tasks.post_tune``. The single-card adversarial
+trainer is ``tasks.trainer`` (with ``models.discriminator``, ``data``,
+``utils.checkpoint``, ``utils.visualizer`` and ``cli.train``).
+``utils.convert`` carries the JAX param trees' weights over, and
+``utils.checkpoint.read_flax_msgpack`` reads the JAX package's files.
 """

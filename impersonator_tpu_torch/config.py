@@ -4,15 +4,21 @@ The port's own copy of ``impersonator_tpu/config.py``'s ``BaseConfig``
 and ``TestConfig``: the reference's option names and defaults
 (``options/base_options.py``, ``test_options.py``) as typed dataclasses.
 Defaults must stay equal to the JAX package's
-(``tests/test_torch_assets.py`` compares them field by field). Training
-flags, argparse parity and the ``opt_*.txt`` audit file come with the
-port's trainer and CLI.
+(``tests/test_torch_assets.py`` and ``tests/test_torch_train_loop.py``
+compare them field by field). ``TrainConfig`` holds the training flags;
+``to_argparse`` / ``from_args`` give the entry points the same flags, and
+``BaseConfig.save`` writes the ``opt_*.txt`` audit file.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Tuple
+
+from impersonator_tpu_torch.utils.checkpoint import latest_epoch
 
 
 @dataclass
@@ -73,6 +79,76 @@ class BaseConfig:
                 self.front_info, self.head_info)
         return A.synthetic_assets()
 
+    # ---- persistence ----------------------------------------------------
+
+    def expr_dir(self) -> str:
+        return os.path.join(self.checkpoints_dir, self.name)
+
+    def save(self, phase: str = "train") -> str:
+        """Write every option to ``{expr_dir}/opt_{phase}.txt``."""
+        os.makedirs(self.expr_dir(), exist_ok=True)
+        path = os.path.join(self.expr_dir(), f"opt_{phase}.txt")
+        with open(path, "w") as f:
+            f.write("------------ Options -------------\n")
+            for k, v in sorted(dataclasses.asdict(self).items()):
+                f.write(f"{k}: {v}\n")
+            f.write("-------------- End ----------------\n")
+        return path
+
+    def resolve_load_epoch(self) -> int:
+        """load_epoch == -1 → the latest complete checkpoint epoch in
+        expr_dir (``utils.checkpoint.latest_epoch``; 0 when there is
+        none)."""
+        if self.load_epoch >= 0:
+            return self.load_epoch
+        return latest_epoch(self.expr_dir())
+
+
+@dataclass
+class TrainConfig(BaseConfig):
+    """Training flags (the reference's options/train_options.py)."""
+
+    is_train: bool = True
+    nepochs_no_decay: int = 5
+    nepochs_decay: int = 25
+    lr_G: float = 2e-4
+    lr_D: float = 2e-4
+    final_lr: float = 2e-6
+    G_adam_b1: float = 0.5
+    G_adam_b2: float = 0.999
+    D_adam_b1: float = 0.5
+    D_adam_b2: float = 0.999
+    train_G_every_n_iterations: int = 1
+    d_layers: int = 4  # PatchGAN depth (needs image_size >= 64)
+
+    # loss weights (the paper's recipe)
+    lambda_D_prob: float = 1.0
+    lambda_rec: float = 10.0
+    lambda_tsf: float = 10.0
+    lambda_face: float = 5.0
+    lambda_style: float = 0.0
+    lambda_mask: float = 1.0
+    lambda_mask_smooth: float = 1.0
+
+    use_vgg: bool = True
+    use_style: bool = False
+    use_face: bool = True
+    mask_bce: bool = True
+    bg_both: bool = False
+    # train step's compute dtype, "float32" | "bfloat16": G / D / VGG run
+    # in it with float32 master weights and float32 loss terms
+    train_dtype: str = "float32"
+    # recompute the generator forward in the backward pass
+    # (torch.utils.checkpoint) instead of keeping its activations
+    remat: bool = False
+
+    # logging / checkpoint cadence (seconds, except display_freq_steps)
+    print_freq_s: int = 60
+    display_freq_s: int = 300
+    display_freq_steps: int = 500
+    save_latest_freq_s: int = 3600
+    num_iters_validate: int = 1
+
 
 @dataclass
 class TestConfig(BaseConfig):
@@ -105,3 +181,33 @@ class TestConfig(BaseConfig):
             key, vals = part.split("=")
             params[key.strip()] = [float(v) for v in vals.split(",")]
         return params
+
+
+def to_argparse(config_cls) -> argparse.ArgumentParser:
+    """One ``--name`` flag per field: booleans as ``--flag`` /
+    ``--no-flag``, tuples as comma-separated strings."""
+    parser = argparse.ArgumentParser()
+    for f in dataclasses.fields(config_cls):
+        if f.type in ("bool", bool):
+            parser.add_argument(f"--{f.name}",
+                                action=argparse.BooleanOptionalAction,
+                                default=f.default)
+        elif isinstance(f.default, tuple):
+            parser.add_argument(f"--{f.name}", type=str,
+                                default=",".join(map(str, f.default)))
+        else:
+            typ = type(f.default) if f.default is not None else str
+            parser.add_argument(f"--{f.name}", type=typ, default=f.default)
+    return parser
+
+
+def from_args(config_cls, argv=None):
+    """The config of ``argv`` (unknown flags are left to other parsers)."""
+    ns, _ = to_argparse(config_cls).parse_known_args(argv)
+    kwargs = vars(ns)
+    for f in dataclasses.fields(config_cls):
+        if isinstance(f.default, tuple) and isinstance(kwargs[f.name], str):
+            parts = [p for p in kwargs[f.name].split(",") if p]
+            cast = int if all(p.lstrip("-").isdigit() for p in parts) else str
+            kwargs[f.name] = tuple(cast(p) for p in parts)
+    return config_cls(**kwargs)

@@ -7,9 +7,9 @@ source features warped by the flow T (resized per stage) at every
 encoder stage and every residual block (the Liquid Warping Block).
 Flows are (B, H, W, 2) in [-1, 1], -2 on background.
 
-Ported: ``run_bg``, ``encode_src``, ``inference`` (imitation and novel
-view), ``swap`` (appearance transfer) and ``infer_front`` (both streams
-live); the training forward comes with the trainer.
+Ported: ``forward`` (the training forward: ``run_bg`` + ``infer_front``),
+``run_bg``, ``encode_src``, ``inference`` (imitation and novel view),
+``swap`` (appearance transfer) and ``infer_front`` (both streams live).
 """
 
 from __future__ import annotations
@@ -107,6 +107,14 @@ class ResUnetGenerator(nn.Module):
         out = F.conv2d(x, k, padding=3)
         return torch.tanh(out[:, :3]), torch.sigmoid(out[:, 3:])
 
+    def forward(self, x):
+        """The plain U-net: (tanh RGB, sigmoid mask)."""
+        enc = self.encode(x)
+        h = enc[-1]
+        for block in self.resnets:
+            h = block(h)
+        return self.regress(self.decode(h, enc))
+
     def inference(self, x):
         """Source-feature cache: every encoder stage and every residual
         block output."""
@@ -130,6 +138,12 @@ class ImpersonatorGenerator(nn.Module):
                                           n_down)
         self.tsf_model = ResUnetGenerator(tsf_dim, conv_dim, repeat_num, 3,
                                           n_down)
+
+    def forward(self, bg_inputs, src_inputs, tsf_inputs, t):
+        """Training forward, inputs NCHW, t (B, H, W, 2) ->
+        (img_bg, src_img, src_mask, tsf_img, tsf_mask)."""
+        img_bg = self.bg_model(bg_inputs)
+        return (img_bg, *self.infer_front(src_inputs, tsf_inputs, t))
 
     def run_bg(self, bg_inputs):
         return self.bg_model(bg_inputs)

@@ -32,6 +32,27 @@ class InstanceNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class BatchNormEval(nn.Module):
+    """BatchNorm2d in eval semantics only: ``(x - mean) · rsqrt(var + eps)
+    · weight + bias`` over the running statistics, each cast to x's dtype
+    (the JAX package's order of operations)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x):
+        def c(v):
+            return v.to(x.dtype)[:, None, None]
+        y = (x - c(self.running_mean)) * torch.rsqrt(c(self.running_var)
+                                                     + self.eps)
+        return y * c(self.weight) + c(self.bias)
+
+
 def conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0):
     return nn.Conv2d(cin, cout, k, stride, padding, bias=False)
 
@@ -66,11 +87,14 @@ class ResidualBlock(nn.Module):
 
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator):
-    """Convs N(0, 0.02), instance norms weight 1 / bias 0 (the JAX
-    package's and the reference's init)."""
+    """Conv weights N(0, 0.02) and conv biases 0, norms weight 1 / bias 0
+    (the JAX package's and the reference's init, for the generator and the
+    discriminator)."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             m.weight.normal_(0.0, 0.02, generator=generator)
-        elif isinstance(m, InstanceNorm):
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (InstanceNorm, BatchNormEval)):
             m.weight.fill_(1.0)
             m.bias.zero_()

@@ -1,18 +1,23 @@
 """Task registry (torch port of ``impersonator_tpu/tasks/factory.py:14-26``).
 
-The inference tasks are ported; the trainers and the ablation
-baselines come with the training slice (``ROADMAP.md`` Queue 1 items 10b
-and 10c) and raise until then.
+The inference tasks and the single-card adversarial trainer are ported;
+the augmented trainer and the ablation baselines come with ``ROADMAP.md``
+Queue 1 items 10b-ii and 10c and raise until then.
 """
 
 from __future__ import annotations
 
-_TRAINERS = ("impersonator_trainer", "impersonator_trainer_aug", "concat",
-             "texture_warping", "feature_warping")
+_NOT_PORTED = {
+    "impersonator_trainer_aug": "10b-ii (trainer_aug)",
+    "concat": "10c (ablation baselines)",
+    "texture_warping": "10c (ablation baselines)",
+    "feature_warping": "10c (ablation baselines)",
+}
 
 
 def get_by_name(name: str, cfg, device="cuda", **kwargs):
-    """The task ``name`` on ``device`` (default CUDA)."""
+    """The task ``name`` on ``device`` (default CUDA). A trainer name
+    returns the trainer (``tasks.trainer.Trainer``) of a TrainConfig."""
     if name == "imitator":
         from impersonator_tpu_torch.tasks.imitator import Imitator as cls
     elif name == "swapper":
@@ -21,10 +26,13 @@ def get_by_name(name: str, cfg, device="cuda", **kwargs):
         from impersonator_tpu_torch.tasks.viewer import Viewer as cls
     elif name == "animator":
         from impersonator_tpu_torch.tasks.animator import Animator as cls
-    elif name in _TRAINERS:
+    elif name == "impersonator_trainer":
+        from impersonator_tpu_torch.tasks.trainer import build_trainer
+        return build_trainer(cfg, device=device, **kwargs)
+    elif name in _NOT_PORTED:
         raise NotImplementedError(
-            f"{name}: the trainers and baselines are not ported yet "
-            "(ROADMAP.md Queue 1 items 10b-10c, the training slice)")
+            f"{name} is not ported yet (ROADMAP.md Queue 1 item "
+            f"{_NOT_PORTED[name]})")
     else:
         raise ValueError(f"Model {name} not recognized.")
     return cls(cfg, device=device, **kwargs)

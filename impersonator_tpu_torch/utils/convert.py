@@ -20,7 +20,14 @@ modules use.
 * :func:`sphere20a_state_dict_from_jax`, :func:`senet50_state_dict_from_jax`
   and :func:`vgg19_state_dict_from_jax` invert ``convert_sphere``,
   ``convert_senet50`` and ``convert_vgg19`` (:mod:`..models.facenet`,
-  :class:`..models.losses.Vgg19`).
+  :class:`..models.losses.Vgg19`);
+* :func:`discriminator_state_dict_from_jax` maps the JAX package's
+  PatchGAN params onto :class:`..models.discriminator.PatchDiscriminator`
+  (no reference converter exists: the reference checkpoints hold no
+  discriminator that the JAX package reads);
+* :func:`adam_state_dict_from_optax` turns an optax
+  ``inject_hyperparams(adam)`` state into a ``torch.optim.Adam`` state
+  dict over a port module's parameters.
 """
 
 from __future__ import annotations
@@ -316,3 +323,68 @@ def vgg19_state_dict_from_jax(tree: dict) -> dict:
         keys.append((f"features.{idx}.bias", "params", f"conv_{ours}/bias",
                      "vec"))
     return _state_dict(tree, keys, {"conv": (3, 2, 0, 1), "vec": None})
+
+
+def discriminator_state_dict_from_jax(tree: dict) -> dict:
+    """{'params'[, 'batch_stats']} flax PatchDiscriminator tree of numpy
+    arrays -> this port's PatchDiscriminator state dict (float32 CPU
+    tensors). The depth and the norm come from the tree."""
+    params = tree["params"]
+    n_layers = sum(k.startswith("conv_") for k in params) - 1
+    norm = "bn" if "bn" in params["norm_1"] else "in"
+    keys = []
+
+    def conv(idx, path):
+        keys.append((f"model.{idx}.weight", "params", path + "/conv/kernel",
+                     "conv"))
+        if "bias" in params[path]["conv"]:
+            keys.append((f"model.{idx}.bias", "params", path + "/conv/bias",
+                         "vec"))
+
+    conv(0, "conv_0")
+    for n in range(1, n_layers + 1):
+        idx = 3 * n - 1
+        conv(idx, f"conv_{n}")
+        src, dst = f"model.{idx + 1}", f"norm_{n}/{norm}"
+        keys += [(src + ".weight", "params", dst + "/scale", "vec"),
+                 (src + ".bias", "params", dst + "/bias", "vec")]
+        if norm == "bn":
+            keys += [(src + ".running_mean", "batch_stats", dst + "/mean",
+                      "vec"),
+                     (src + ".running_var", "batch_stats", dst + "/var",
+                      "vec")]
+    conv(3 * n_layers + 2, "head")
+    sd = _state_dict(tree, keys, {"conv": (3, 2, 0, 1), "vec": None})
+    # BatchNormEval keeps no batch counter
+    return {k: v for k, v in sd.items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def adam_state_dict_from_optax(opt_state: dict, state_dict_from_jax,
+                               module, optimizer) -> dict:
+    """An optax ``inject_hyperparams(adam)`` state as a nested dict
+    (``flax.serialization.to_state_dict`` of it, or what
+    ``utils.checkpoint.read_flax_msgpack`` reads from its file) -> the
+    state dict of ``optimizer``, a ``torch.optim.Adam`` over
+    ``module.parameters()`` in that order: ``exp_avg`` / ``exp_avg_sq``
+    from optax's ``mu`` / ``nu`` (mapped by ``state_dict_from_jax``, the
+    module's ``*_state_dict_from_jax``), ``step`` from its count, and the
+    group's ``lr`` from the injected learning rate. optax's update,
+    lr · m̂ / (sqrt(v̂) + eps), is torch's Adam with the same eps."""
+    inner = opt_state["inner_state"]["0"]
+    mu = state_dict_from_jax(inner["mu"])
+    nu = state_dict_from_jax(inner["nu"])
+    step = float(np.asarray(inner["count"]))
+    sd = optimizer.state_dict()
+    names = [n for n, _ in module.named_parameters()]
+    ids = sd["param_groups"][0]["params"]
+    if len(sd["param_groups"]) != 1 or len(ids) != len(names):
+        raise ValueError("optimizer must hold one group of the module's "
+                         "parameters")
+    sd["state"] = {i: {"step": torch.tensor(step),
+                       "exp_avg": mu[n].clone(),
+                       "exp_avg_sq": nu[n].clone()}
+                   for i, n in zip(ids, names)}
+    sd["param_groups"][0]["lr"] = float(np.asarray(
+        opt_state["hyperparams"]["learning_rate"]))
+    return sd

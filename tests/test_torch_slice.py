@@ -123,6 +123,13 @@ PORT_MODULES = [
     "impersonator_tpu_torch.tasks.animator",
     "impersonator_tpu_torch.tasks.factory",
     "impersonator_tpu_torch.tasks.post_tune",
+    "impersonator_tpu_torch.tasks.trainer",
+    "impersonator_tpu_torch.models.discriminator",
+    "impersonator_tpu_torch.data.datasets",
+    "impersonator_tpu_torch.data.loader",
+    "impersonator_tpu_torch.utils.checkpoint",
+    "impersonator_tpu_torch.utils.visualizer",
+    "impersonator_tpu_torch.cli.train",
     "impersonator_tpu_torch.utils.convert",
     "impersonator_tpu_torch.utils.cv_utils",
     "impersonator_tpu_torch.utils.precision",
