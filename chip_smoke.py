@@ -7,8 +7,9 @@ one NVIDIA GPU. Run from the repository root:
 Phases, each failing the run (exit 1) on any error:
 
 1. needs torch.cuda; prints the card's name and power limit;
-2. builds the hand-written kernels with nvcc, every csrc/*.cu at once
-   (build seconds);
+2. builds the hand-written kernels with nvcc, every csrc/*.cu at once,
+   and beside them the image codec (csrc/host_codec.cpp against nvJPEG
+   and zlib; build seconds);
 3. bucket kernels vs their plain twins on the card at 256² on the
    12,880-face synthetic body: 16 poses, plus a random scene with one
    oversized front face, a scene behind the far plane and a degenerate
@@ -110,6 +111,32 @@ Phases, each failing the run (exit 1) on any error:
    batch 16, synthetic data (64 items): 1 epoch of 4 steps, and a second
    call that resumes with --load_epoch -1 and trains epoch 2 (checkpoint
    files of both epochs, Adam's step count 8, 8 launches of each kernel);
+12. host and device IO, serve and the CLIs (a temporary directory): 64
+   seeded smooth 256² frames JPEG-encoded by the card's codec (quality
+   95, 4:2:0) and decoded back above 35 dB; the committed fixtures
+   (impersonator_tpu_torch/testdata/codec) decoded as OpenCV did (PNG
+   exact, JPEG within JPEG_MAX_GAP / JPEG_OVER2_SHARE) and resize_u8 equal
+   to JAX's native loader's; on a float32 task, inference_from_paths of
+   the 64 frames at batch 16 with uint8 readback against
+   round((inference + 1) * 127.5) (U8_STREAM_SHARE), with I420 readback
+   within one level of rgb_to_i420 of the float preds, rgb_to_i420 and
+   i420_to_rgb_device on the card against the CPU (equal; 1e-6), and the
+   I420 ingest through _stream_infer against inference (STREAM_TOL), one
+   zbuffer_bucket_flow launch per batch; on the bf16 leg of 4b: frames/s
+   of the u8 and I420 streams (median of 3) against inference on the same
+   frames pre-staged on the card, the split (the ring's decode + resize
+   ms a frame, u8 H2D, HMR + imitation, D2H u8 / I420 ms a batch) and the
+   device's idle share of one streamed request under torch.profiler
+   (chiprun_out/profile_host_io.txt); serve's make_server in-process on
+   127.0.0.1: /healthz (backend cuda), /personalize (a JPEG body),
+   /imitate (64 θs -> 64 JPEGs of 256²), /imitate_frames (16 JPEGs), a
+   malformed body 400 then 200, /imitate_video 400 without ffmpeg,
+   latencies (median of 3), memory over 10 requests within
+   SERVE_MEM_SLACK, HMR on the service's worker thread against a fresh
+   thread (what the worker saves: PyTorch's per-thread cuDNN plans); then cli.run_imitator on the 64 frames (timed, first
+   call), and together run_imitator --i420, run_swap, run_view (16 views)
+   and demos imitator, each a subprocess with --device cuda, exit 0, the
+   files written and decodable;
 9. float32 with TF32 off, card against CPU on the same weights:
    swap_core on the card from the CPU's two states (preds within 1e-2),
    the flow kernel on the CPU's rotated meshes (fim equal to the twin's,
@@ -123,12 +150,14 @@ Phases, each failing the run (exit 1) on any error:
    wall time, the largest kernels and the z-buffer kernels' mean device
    time per launch (full tables in chiprun_out/profile_*.txt).
 
-Phases run in the order 1-4b, 7, 8, 8b, 10, 11, 9, 5, 5b, 6. Each path
-(3c, 4, 4b, 7, 8, 8b, 10, 11's bf16, float32 and CLI runs) runs with
+Phases run in the order 1-4b, 7, 8, 8b, 10, 11, 12, 9, 5, 5b, 6. Each
+path (3c, 4, 4b, 7, 8, 8b, 10, 11's bf16, float32 and CLI runs, 12's
+streamed requests and /imitate) runs with
 every launch count set to 0 just before it and read just after, and
 fails if a kernel of the path never launched; the record's
 launches_by_path holds each path's counts ("train", "train_fp32",
-"train_cli" for phase 11). The seconds of each phase and the whole
+"train_cli" for phase 11; "host_io_u8", "host_io_i420" and
+"serve_imitate" for phase 12). The seconds of each phase and the whole
 script's wall time are printed before the record. The line before the
 last is nvidia-smi's name and power limit, the one before it the kernels' JSON record (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its float operations
@@ -179,6 +208,21 @@ TUNE_LOSS_RTOL, TUNE_GRAD_RTOL, TUNE_GRAD_ALL_RTOL, TUNE_STEP_FLIPS = (
 # pixel in the face's bbox; barycentric rows 12, renormalisation 5 and
 # depth 6 only for the pairs that pass it
 OPS_TEST, OPS_HIT = 15, 23
+# phase 12. The card's JPEG decoder is nvJPEG: its IDCT rounds otherwise
+# than libjpeg's integer one (the chroma upsampling and colour conversion
+# after it are libjpeg's, bit for bit), so a decode may sit a level or two
+# from OpenCV's, and on the committed fixtures one value in 19,008 sits
+# three off: at most JPEG_OVER2_SHARE of the values more than 2 levels off,
+# none more than JPEG_MAX_GAP. A quality-95 JPEG of a smooth frame stays
+# above JPEG_PSNR_DB. The u8 stream normalises x / 127.5 - 1 on the card,
+# the reference x / 255 * 2 - 1 on the host: at most U8_STREAM_SHARE of
+# the values more than one level apart. The I420 ingest against inference
+# on the same unpacked frames: STREAM_TOL. Memory may grow by at most
+# SERVE_MEM_SLACK bytes over 10 requests (autograd graphs would pile up
+# by gigabytes).
+JPEG_MAX_GAP, JPEG_OVER2_SHARE, JPEG_PSNR_DB = 3, 1e-4, 35.0
+U8_STREAM_SHARE, STREAM_TOL, SERVE_MEM_SLACK = 1e-3, 1e-5, 64 << 20
+IO_FRAMES, IO_BATCH = 64, 16     # phase 12's frames on disk and batch
 
 
 def lap(name):
@@ -1139,6 +1183,442 @@ def train_phase(cr, smpl_ops, assets, dev, tag):
     return by_path, w_err, t_err
 
 
+def smooth_frames(n, s, seed):
+    """n seeded smooth uint8 frames (s, s, 3): sine patterns at random
+    phases, the shape of target_images without its noise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:s, 0:s].astype(np.float32) / s
+    ph = rng.uniform(0, 2 * np.pi, (n, 3, 1, 1)).astype(np.float32)
+    img = np.stack([np.sin(6.0 * x + ph[:, 0]), np.cos(4.0 * y + ph[:, 1]),
+                    np.sin(5.0 * x * y + ph[:, 2])], -1)
+    return np.round((img * 0.45 + 0.5) * 255).astype(np.uint8)
+
+
+def psnr_db(a, b):
+    import numpy as np
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+
+
+def codec_checks(native, dev, tmp, tag):
+    """Phase 12's codec checks: 64 seeded 256² frames through the card's
+    encoder and decoder (PSNR), the committed fixtures' decodes and
+    resizes. Returns (frame paths, encode ms per frame)."""
+    import numpy as np
+    import torch
+    s = GEOM["s"]
+    frames = smooth_frames(IO_FRAMES, s, seed=3)
+    fdir = tmp / "frames"
+    fdir.mkdir()
+    paths, enc_ms, worst = [], [], np.inf
+    for i, f in enumerate(frames):
+        t = torch.from_numpy(f).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = native.encode_jpeg(t, device=dev)
+        enc_ms.append(1e3 * (time.perf_counter() - t0))
+        p = fdir / f"{i:03d}.jpg"
+        p.write_bytes(data)
+        paths.append(str(p))
+        worst = min(worst, psnr_db(native.decode(data, dev), f))
+    check(worst > JPEG_PSNR_DB, f"JPEG round trip PSNR {worst:.2f} dB")
+    fix = Path(__file__).resolve().parent / "impersonator_tpu_torch" \
+        / "testdata" / "codec"
+    dec = np.load(fix / "cv2_decode.npz")
+    res = np.load(fix / "jax_resize_u8.npz")
+    gaps = {}
+    for name in dec.files:
+        got = native.read_image(str(fix / name), dev)
+        diff = np.abs(got.astype(int) - dec[name].astype(int))
+        gaps[name] = (int(diff.max()), float((diff > 2).mean()))
+        if name.endswith(".png"):
+            check(diff.max() == 0, f"PNG decode of {name} off by "
+                                   f"{diff.max()}")
+        else:
+            check(diff.max() <= JPEG_MAX_GAP and
+                  (diff > 2).mean() <= JPEG_OVER2_SHARE,
+                  f"JPEG decode of {name}: max {diff.max()}, share over 2 "
+                  f"{(diff > 2).mean()}")
+        for sz in (48, 224):
+            want = res[f"{name}@{sz}"]
+            check(np.array_equal(native.resize_u8(dec[name], sz, dev), want),
+                  f"resize_u8 of {name} at {sz} differs from JAX's native")
+            if name.endswith(".png"):
+                check(np.array_equal(native.decode_resize_u8(
+                    str(fix / name), sz, dev), want),
+                    f"decode_resize_u8 of {name} at {sz}")
+    print(f"codec ({native.load(dev).kind} build): {IO_FRAMES} frames "
+          f"{s}^2 encoded at quality 95, 4:2:0, {np.median(enc_ms):.3f} ms a "
+          f"frame (median, host clock around a call that ends in a "
+          f"synchronise), decoded back at >= {worst:.2f} dB PSNR; fixtures "
+          f"against their OpenCV decodes (max gap, share over 2 levels) "
+          f"{gaps}; resize_u8 equal to JAX's native on all four {tag}",
+          flush=True)
+    return paths, float(np.median(enc_ms))
+
+
+def stream_checks(cr, imi, assets, src_img, thetas, paths, native, cs, dev,
+                  tag):
+    """Phase 12's stream checks on a float32 task: u8 and I420 readback
+    against the float preds, the colour transforms card vs CPU, and the
+    I420 ingest. Returns the u8 frames at 224 (numpy) and the launch
+    counts of one streamed request."""
+    import numpy as np
+    import torch
+    from impersonator_tpu_torch.config import TestConfig
+    s = GEOM["s"]
+    cfg32 = TestConfig(image_size=s, repeat_num=6, compute_dtype="float32")
+    imit = imi.Imitator(cfg32, assets=assets, device=dev)
+    imit.personalize(src_img, src_smpl=thetas[0])
+    fr_u8 = np.stack([native.decode_resize_u8(p, 224, dev) for p in paths])
+    ref = imit.inference(fr_u8.astype(np.float32) / 255.0 * 2.0 - 1.0,
+                         batch=IO_BATCH)
+    reset_counts(cr)
+    got_u8 = imit.inference_from_paths(paths, batch=IO_BATCH,
+                                       as_uint8=True)
+    launches = read_counts(cr)
+    check(launches["zbuffer_bucket_flow"] == IO_FRAMES // IO_BATCH,
+          f"streamed request flow launches {launches}")
+    want = torch.round((ref + 1.0) * 127.5).clamp(0, 255).cpu().numpy()
+    diff = np.abs(got_u8.astype(int) - want.astype(int))
+    share = float((diff > 1).mean())
+    check(got_u8.shape == (IO_FRAMES, s, s, 3) and got_u8.dtype == np.uint8,
+          f"u8 stream {got_u8.shape} {got_u8.dtype}")
+    check(share <= U8_STREAM_SHARE, f"u8 stream: {share} of the values "
+                                    f"more than 1 level off")
+    preds = imit.inference_from_paths(paths, batch=IO_BATCH)
+    got_i420 = imit.inference_from_paths(paths, batch=IO_BATCH,
+                                         as_i420=True)
+    gap_i420 = int(np.abs(got_i420.astype(int) - cs.rgb_to_i420(preds)
+                          .cpu().numpy().astype(int)).max())
+    check(gap_i420 <= 1, f"I420 stream off by {gap_i420} levels")
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(-1.05, 1.05, (16, s, s, 3))
+                         .astype(np.float32))
+    packed = cs.rgb_to_i420(x)
+    check(torch.equal(cs.rgb_to_i420(x.to(dev)).cpu(), packed),
+          "rgb_to_i420 on the card differs from the CPU")
+    rgb_gap = float((cs.i420_to_rgb_device(packed.to(dev)).cpu()
+                     - cs.i420_to_rgb_device(packed)).abs().max())
+    check(rgb_gap <= 1e-6, f"i420_to_rgb_device card vs CPU {rgb_gap}")
+    ingest = cs.rgb_to_i420(torch.from_numpy(fr_u8).float() / 127.5 - 1.0) \
+        .numpy()
+    got = imit._stream_infer((ingest[i:i + IO_BATCH]
+                              for i in range(0, IO_FRAMES, IO_BATCH)),
+                             imit.regress_smpl_i420, None, "smooth", False,
+                             False)
+    want = imit.inference(cs.i420_to_rgb_device(
+        torch.from_numpy(ingest).to(dev)), batch=IO_BATCH)
+    ingest_gap = float((got - want).abs().max())
+    check(ingest_gap <= STREAM_TOL, f"I420 ingest stream {ingest_gap}")
+    print(f"streams (float32 task, {IO_FRAMES} frames, batch {IO_BATCH}): u8 readback off "
+          f"round((inference + 1) * 127.5) by > 1 level on {share:.2e} of "
+          f"the values (max {diff.max()}); I420 readback max {gap_i420} "
+          f"level(s) from rgb_to_i420 of the float preds; rgb_to_i420 card "
+          f"= CPU, i420_to_rgb_device card vs CPU {rgb_gap:.2e}; I420 ingest "
+          f"vs inference {ingest_gap:.2e}; launches {launches} {tag}",
+          flush=True)
+    del imit
+    torch.cuda.empty_cache()
+    return fr_u8, launches
+
+
+def host_io_timings(cr, imit, paths, fr_u8, native, cs, dev, tag):
+    """Phase 12's host-IO leg (bf16 Imitator, batch 16, 64 JPEG frames):
+    frames/s of the u8 and I420 streams against inference on frames
+    pre-staged on the card, the split, and one profiled request. Returns
+    {path: launch counts}."""
+    import numpy as np
+    import torch
+    mode = {"u8": dict(as_uint8=True), "i420": dict(as_i420=True)}
+    imit.inference_from_paths(paths, batch=IO_BATCH, as_uint8=True)  # warm-up
+    fps, launches = {}, {}
+    for k, kw in mode.items():
+        reset_counts(cr)
+        times, _ = requests(lambda: imit.inference_from_paths(
+            paths, batch=IO_BATCH, **kw))
+        launches[f"host_io_{k}"] = read_counts(cr)
+        check(launches[f"host_io_{k}"]["zbuffer_bucket_flow"]
+              == 3 * (IO_FRAMES // IO_BATCH),
+              f"{k} stream launches {launches[f'host_io_{k}']}")
+        fps[k] = (IO_FRAMES / sorted(times)[1], times)
+    staged = torch.from_numpy(fr_u8).to(dev).float() / 127.5 - 1.0
+    ceil_t, _ = requests(lambda: imit.inference(staged, batch=IO_BATCH))
+    fps["staged"] = (IO_FRAMES / sorted(ceil_t)[1], ceil_t)
+    # the split
+    t0 = time.perf_counter()
+    ahead = 2 * IO_BATCH
+    with native.NativeImageLoader(224, threads=3, capacity=ahead, u8=True,
+                                  device=dev) as ring:
+        for p in paths[:ahead]:
+            ring.submit(p)
+        for i in range(IO_FRAMES):
+            ring.next()
+            if i + ahead < IO_FRAMES:
+                ring.submit(paths[i + ahead])
+    ring_ms = 1e3 * (time.perf_counter() - t0) / IO_FRAMES
+    pinned = torch.from_numpy(fr_u8[:IO_BATCH]).pin_memory()
+    h2d = median_ms(lambda: pinned.to(dev, non_blocking=True), 20)
+    xb = pinned.to(dev)
+
+    def step():
+        th = imit.regress_smpl_u8(xb)
+        return imit._imitate(imit.src_info, th, th[0:1, 0:3], "smooth")
+    step_ms = median_ms(step, 10)
+    pred = step()
+    d2h = {}
+    for k, pk in (("u8", cs.rgb_to_u8(pred)), ("i420", cs.rgb_to_i420(pred))):
+        host = torch.empty(pk.shape, dtype=pk.dtype, pin_memory=True)
+        d2h[k] = median_ms(lambda: host.copy_(pk, non_blocking=True), 20)
+    wall, kern, rows = profile_request(
+        lambda: imit.inference_from_paths(paths, batch=IO_BATCH,
+                                          as_uint8=True),
+        Path("chiprun_out") / "profile_host_io.txt")
+    print(f"host-IO leg (bf16 Imitator with HMR, {IO_FRAMES} JPEG frames "
+          f"{GEOM['s']}^2, batch {IO_BATCH}, median of 3): inference_from_paths as_uint8 "
+          f"{fps['u8'][0]:.1f} frames/s, as_i420 {fps['i420'][0]:.1f} "
+          f"frames/s, against inference on the same frames pre-staged on "
+          f"the card {fps['staged'][0]:.1f} frames/s (request seconds "
+          f"{ {k: [round(t, 4) for t in v[1]] for k, v in fps.items()} }) "
+          f"{tag}", flush=True)
+    print(f"host-IO split: decode + resize {ring_ms:.3f} ms a frame (the "
+          f"ring alone, 3 threads, {IO_FRAMES} frames); u8 H2D {h2d:.4f} ms "
+          f"a batch of {IO_BATCH} (pinned, CUDA events); HMR + imitation {step_ms:.3f} ms a "
+          f"batch (CUDA events); D2H u8 {d2h['u8']:.4f} ms, I420 "
+          f"{d2h['i420']:.4f} ms a batch (pinned); one streamed u8 request "
+          f"under the profiler: wall {wall:.2f} ms, {kernel_share(kern, wall)}"
+          f" {tag}", flush=True)
+    for ms, n, name in rows[:8]:
+        print(f"profile host-IO: {ms:9.3f} ms {n:5d} x {name[:90]}")
+    return launches
+
+
+def serve_checks(cr, cfg, paths, req_thetas, src_img, native, dev, enc_ms,
+                 tag):
+    """Phase 12's HTTP checks: make_server in this process on 127.0.0.1
+    (an ephemeral port) over the service's own bf16 Imitator (at cfg, on
+    the config's assets, as `python -m ...cli.serve` builds it). Returns
+    the launch counts of one /imitate request of 64 θs."""
+    import base64
+    import http.client
+    import threading
+    import numpy as np
+    import torch
+    from impersonator_tpu_torch.cli import serve
+    from impersonator_tpu_torch.utils.video import have_ffmpeg
+    s = GEOM["s"]
+    service = serve.ImitatorService(cfg, batch=IO_BATCH, device=dev)
+    server = serve.make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def call(method, path, body=None, headers=None):
+        c = http.client.HTTPConnection("127.0.0.1", server.server_port,
+                                       timeout=600)
+        c.request(method, path, body=body, headers=headers or {})
+        r = c.getresponse()
+        out = r.status, r.read()
+        c.close()
+        return out
+
+    try:
+        code, body = call("GET", "/healthz")
+        check(code == 200 and json.loads(body)["backend"] == dev.type,
+              f"/healthz {code} {body[:200]}")
+        src_u8 = np.round((src_img + 1.0) * 127.5).clip(0, 255) \
+            .astype(np.uint8)
+        code, body = call("POST", "/personalize",
+                          native.encode_jpeg(src_u8, device=dev))
+        check(code == 200, f"/personalize {code} {body[:200]}")
+        imitate = json.dumps({"smpls": req_thetas.tolist()})
+        reset_counts(cr)
+        code, body = call("POST", "/imitate", imitate)
+        launches = read_counts(cr)
+        check(code == 200, f"/imitate {code} {body[:200]}")
+        check(launches["zbuffer_bucket_flow"] == len(req_thetas) // IO_BATCH,
+              f"/imitate launches {launches}")
+        frames = json.loads(body)["frames"]
+        check(len(frames) == len(req_thetas) and all(
+            native.decode(base64.b64decode(f), dev).shape == (s, s, 3)
+            for f in frames), f"/imitate frames do not decode to {s}^2")
+        b64 = [base64.b64encode(Path(p).read_bytes()).decode("ascii")
+               for p in paths[:IO_BATCH]]
+        frames_body = json.dumps({"frames": b64})
+        code, body = call("POST", "/imitate_frames", frames_body)
+        check(code == 200 and len(json.loads(body)["frames"]) == IO_BATCH,
+              f"/imitate_frames {code} {body[:200]}")
+        lat, locked = {}, {}
+        for name, path, req in (("imitate", "/imitate", imitate),
+                                ("imitate_frames", "/imitate_frames",
+                                 frames_body)):
+            ts, inner = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                code, body = call("POST", path, req)
+                ts.append(time.perf_counter() - t0)
+                check(code == 200, f"{path} {code}")
+                inner.append(json.loads(body)["seconds"])
+            lat[name], locked[name] = ts, sorted(inner)[1]
+        code, _ = call("POST", "/imitate", b"{not json")
+        check(code == 400, f"a malformed body got {code}")
+        code, _ = call("POST", "/imitate", imitate)
+        check(code == 200, f"the request after a 400 got {code}")
+        code, body = call("POST", "/imitate_video", imitate)
+        if not have_ffmpeg():
+            check(code == 400 and b"ffmpeg" in body,
+                  f"/imitate_video without ffmpeg got {code}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem = []
+        for _ in range(10):
+            check(call("POST", "/imitate", imitate)[0] == 200, "/imitate")
+            mem.append((torch.cuda.memory_allocated(),
+                        torch.cuda.max_memory_allocated()))
+        grow = mem[-1][0] - mem[0][0]
+        check(grow <= SERVE_MEM_SLACK and
+              mem[-1][1] <= mem[0][1] + SERVE_MEM_SLACK,
+              f"memory grew over 10 requests: {mem[0]} -> {mem[-1]}")
+        hmr_worker, hmr_fresh = fresh_thread_cost(service, dev)
+    finally:
+        server.shutdown()
+        thread.join(timeout=30)
+        server.server_close()
+        service.close()
+    med = {k: sorted(v)[1] for k, v in lat.items()}
+    print(f"serve over localhost (bf16 Imitator, batch {IO_BATCH}, median "
+          f"of 3): /imitate of {len(req_thetas)} thetas "
+          f"{1e3 * med['imitate']:.1f} ms (a JPEG each back), "
+          f"/imitate_frames of {IO_BATCH} JPEG frames "
+          f"{1e3 * med['imitate_frames']:.1f} ms (of which the model and "
+          f"the JPEG encode on the service's worker: "
+          f"{1e3 * locked['imitate']:.0f} / "
+          f"{1e3 * locked['imitate_frames']:.0f} ms); HMR at batch "
+          f"{IO_BATCH} on the worker {hmr_worker:.2f} ms, on a fresh "
+          f"thread {hmr_fresh:.2f} ms (median of 3); JPEG encode ({s}^2) "
+          f"{enc_ms:.3f} ms a frame; a malformed body 400 and the "
+          f"next 200; /imitate_video {code} (ffmpeg "
+          f"{'present' if have_ffmpeg() else 'absent'}); memory allocated "
+          f"after 10 /imitate requests {mem[-1][0] / 2**30:.3f} GiB (first "
+          f"{mem[0][0] / 2**30:.3f}), peak {mem[-1][1] / 2**30:.3f} GiB "
+          f"(first {mem[0][1] / 2**30:.3f}); launches {launches} {tag}",
+          flush=True)
+    return launches
+
+
+def fresh_thread_cost(service, dev):
+    """Median ms of HMR on a batch of IO_BATCH 224² frames on the
+    service's worker thread and on a fresh thread each call (as a model
+    call on an HTTP handler thread would run): PyTorch keeps cuDNN's
+    execution plans per thread."""
+    import threading
+    import torch
+    x = torch.zeros(IO_BATCH, 224, 224, 3, device=dev)
+
+    def hmr():
+        with torch.no_grad():
+            service.imitator.regress_smpl(x)
+        torch.cuda.synchronize()
+
+    def fresh():
+        t = threading.Thread(target=hmr)
+        t.start()
+        t.join()
+
+    out = []
+    for call in (lambda: service._run(hmr), fresh):
+        call()
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            call()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        out.append(sorted(ts)[1])
+    return out
+
+
+def cli_checks(native, src_img, paths, dev, tmp, tag):
+    """Phase 12's CLI checks: each entry point as a subprocess with
+    --device cuda at 256²; run_imitator alone first (timed), then the
+    others together."""
+    import numpy as np
+    root = Path(__file__).resolve().parent
+    from impersonator_tpu_torch.utils.visualizer import write_png
+    src = tmp / "src.png"
+    write_png(str(src), np.round((src_img + 1.0) * 127.5).clip(0, 255)
+              .astype(np.uint8))
+    fdir = str(Path(paths[0]).parent)
+
+    def cmd(mod, out, *extra):
+        return [sys.executable, "-m", f"impersonator_tpu_torch.cli.{mod}",
+                *extra, "--device", dev.type, "--image_size",
+                str(GEOM["s"]), "--checkpoints_dir", str(tmp / "ckpt"),
+                "--output_dir", str(tmp / out)]
+
+    def wait(proc, what):
+        out, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"{what} exited {proc.returncode}:\n"
+                                    f"{out[-2000:]}\n{err[-3000:]}")
+
+    t0 = time.perf_counter()
+    wait(subprocess.Popen(cmd("run_imitator", "imit", "--src_path",
+                              str(src), "--tgt_path", fdir, "--name", "a"),
+                          cwd=root, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True),
+         "run_imitator")
+    imit_s = time.perf_counter() - t0
+    jobs = {
+        "run_imitator --i420": cmd("run_imitator", "imit420", "--src_path",
+                                   str(src), "--tgt_path", fdir, "--i420",
+                                   "--name", "b"),
+        "run_swap": cmd("run_swap", "swap", "--src_path", str(src),
+                        "--tgt_path", paths[0], "--name", "c"),
+        "run_view": cmd("run_view", "view", "--src_path", str(src),
+                        "--name", "d"),
+        "demos imitator": cmd("demos", "demo", "imitator", "--name", "e")}
+    t1 = time.perf_counter()
+    procs = {k: subprocess.Popen(v, cwd=root, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, v in jobs.items()}
+    for k, p in procs.items():
+        wait(p, k)
+    rest_s = time.perf_counter() - t1
+    for out in ("imit", "imit420"):
+        preds = sorted((tmp / out).glob("pred_*"))
+        check(len(preds) == IO_FRAMES and all(
+            native.read_image(str(p), dev).shape == (GEOM["s"], GEOM["s"], 3)
+            for p in preds), f"{out}: {len(preds)} decodable pred files")
+    check((tmp / "swap" / "swap_result.png").exists(), "no swap_result.png")
+    check(len(list((tmp / "view").glob("view_*.png"))) == 16,
+          "run_view did not write 16 views")
+    print(f"CLIs (subprocesses, --device {dev.type}, {GEOM['s']}^2): "
+          f"run_imitator on {IO_FRAMES} frames {imit_s:.2f} s of wall time (first call: start-up, "
+          f"build check, nets, personalize, the frames, files); run_imitator "
+          f"--i420, run_swap, run_view (16 views) and demos imitator "
+          f"together {rest_s:.2f} s; {IO_FRAMES} decodable pred files each "
+          f"{tag}",
+          flush=True)
+
+
+def host_io_phase(cr, imi, imit_h, assets, cfg, src_img, thetas, req_thetas,
+                  dev, tag):
+    """Phase 12 (module docstring); returns {path: launch counts}."""
+    import tempfile
+    from impersonator_tpu_torch.data import native
+    from impersonator_tpu_torch.ops import colorspace as cs
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        paths, enc_ms = codec_checks(native, dev, tmp, tag)
+        fr_u8, stream_launches = stream_checks(
+            cr, imi, assets, src_img, thetas, paths, native, cs, dev, tag)
+        launches = host_io_timings(cr, imit_h, paths, fr_u8, native, cs,
+                                   dev, tag)
+        launches["serve_imitate"] = serve_checks(
+            cr, cfg, paths, req_thetas, src_img, native, dev, enc_ms, tag)
+        cli_checks(native, src_img, paths, dev, tmp, tag)
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -1165,13 +1645,21 @@ def main():
 
     # -- phase 2: build ----------------------------------------------------
     lap("2")
+    from concurrent.futures import ThreadPoolExecutor
+    from impersonator_tpu_torch.data import native
     t0 = time.perf_counter()
-    log = cr.build()
-    build_s = time.perf_counter() - t0
+    with ThreadPoolExecutor(1) as pool:     # the codec builds meanwhile
+        codec = pool.submit(native.load, dev)
+        log = cr.build()
+        build_s = time.perf_counter() - t0
+        codec_kind = codec.result().kind
+    codec_s = time.perf_counter() - t0
     for line in log.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             print("ptxas:", line.strip())
-    print(f"build: {build_s:.2f} s (nvcc + load) {tag}", flush=True)
+    print(f"build: {build_s:.2f} s (nvcc + load); the {codec_kind} image "
+          f"codec (nvJPEG) built beside it, ready at {codec_s:.2f} s {tag}",
+          flush=True)
 
     # -- phase 3: kernels vs plain twins -----------------------------------
     lap("3")
@@ -1554,6 +2042,11 @@ def main():
     errs["zbuffer_bucket_rows"] = max(errs["zbuffer_bucket_rows"], w_tr)
     errs["zbuffer_bucket_flow"] = max(errs["zbuffer_bucket_flow"], t_tr)
 
+    # -- phase 12: host and device IO, serve and the CLIs -------------------
+    lap("12")
+    io_launches = host_io_phase(cr, imi, imit_h, assets, cfg, src_img,
+                                thetas, req_thetas, dev, tag)
+
     # -- phase 9: fp32 (TF32 off) card vs CPU: swap, view, DeepFill ----------
     lap("9")
     torch.backends.cudnn.allow_tf32 = False
@@ -1750,7 +2243,8 @@ def main():
                "view_sweep": launches_sweep, "view_by_smpls": launches_view,
                "deepfill_front_warp": launches_bg,
                "post_tune_imitator": pt_launches,
-               "post_tune_swapper": pt_sw_launches, **train_launches}
+               "post_tune_swapper": pt_sw_launches, **train_launches,
+               **io_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"impersonator_tpu_torch/csrc/{src}",

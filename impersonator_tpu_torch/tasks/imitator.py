@@ -10,7 +10,11 @@
   and with ``front_warp`` the warped source face pasted over the head;
 * :class:`Imitator` — ``personalize`` (from a given θ, or HMR's),
   ``inference_by_smpls`` and ``inference`` (HMR on each target image,
-  then imitation).
+  then imitation), and the streamed feeds ``inference_from_paths`` (image
+  files through the codec's prefetch ring, uint8 over H2D) and
+  ``inference_from_video`` (raw I420 from ffmpeg), whose predictions can
+  come back packed on the device as uint8 RGB or I420 (:489-661 of the
+  JAX module).
 
 Tensors at these functions are NHWC, flows (B, H, W, 2), as in the JAX
 package; the networks run NCHW and the transpose happens at their call.
@@ -28,19 +32,24 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from impersonator_tpu_torch.assets import SMPLAssets
 from impersonator_tpu_torch.config import TestConfig
+from impersonator_tpu_torch.data import native
 from impersonator_tpu_torch.models.generator import ImpersonatorGenerator
 from impersonator_tpu_torch.models.hmr import HumanModelRecovery, init_hmr
 from impersonator_tpu_torch.models.inpaintor import (InpaintSANet,
                                                      init_inpaintor)
 from impersonator_tpu_torch.models.layers import init_weights
 from impersonator_tpu_torch.ops import morphology
+from impersonator_tpu_torch.ops.colorspace import (i420_to_rgb_device,
+                                                   rgb_to_i420, rgb_to_u8)
 from impersonator_tpu_torch.ops import smpl as smpl_ops
 from impersonator_tpu_torch.ops.sampler import grid_sample_nchw
 from impersonator_tpu_torch.tasks.renderer import SMPLRenderer
@@ -399,3 +408,167 @@ class Imitator:
             outs.append(self._imitate(self.src_info, thetas, self.first_cam,
                                       cam_strategy))
         return torch.cat(outs)[:n]
+
+    @torch.no_grad()
+    def regress_smpl_u8(self, u8):
+        """uint8 RGB (B, 224, 224, 3), array or tensor -> θ (B, 85): the
+        [-1, 1] normalise ``u8 / 127.5 - 1`` runs on the device."""
+        x = torch.as_tensor(u8, device=self.device)
+        return self.regress_smpl(x.float() / 127.5 - 1.0)
+
+    @torch.no_grad()
+    def regress_smpl_i420(self, packed):
+        """Packed I420 (B, 336, 224) uint8 -> θ (B, 85): the BT.601
+        inverse runs on the device (:func:`..ops.colorspace.
+        i420_to_rgb_device`)."""
+        x = torch.as_tensor(packed, device=self.device)
+        return self.regress_smpl(i420_to_rgb_device(x))
+
+    def inference_from_paths(self, paths, cam_strategy: str = "smooth",
+                             batch: int = 8, as_uint8: bool = False,
+                             as_i420: bool = False):
+        """Image files -> preds, streamed: the codec's prefetch ring
+        (``data.native``, 3 threads, 2·batch frames ahead; the codec of
+        the Imitator's device type) decodes and resizes to 224² uint8
+        while the device runs earlier batches; the frames go to the
+        device as uint8 and HMR normalises them there. The last batch is
+        padded with the last path. Returns a device tensor (N, S, S, 3),
+        or with ``as_uint8`` / ``as_i420`` a host array packed on the
+        device (see :meth:`_stream_infer`)."""
+        self._require_source()
+        paths = list(paths)
+        if not paths:
+            raise ValueError("no frames to imitate")
+        n = len(paths)
+        all_paths = paths + [paths[-1]] * ((-n) % batch)
+
+        def batches():
+            with native.NativeImageLoader(224, threads=3,
+                                          capacity=2 * batch, u8=True,
+                                          device=self.device) as loader:
+                ahead = min(2 * batch, len(all_paths))
+                for p in all_paths[:ahead]:
+                    loader.submit(p)
+                buf = []
+                for _ in range(len(all_paths)):
+                    frame, _ = loader.next()
+                    if ahead < len(all_paths):
+                        loader.submit(all_paths[ahead])
+                        ahead += 1
+                    buf.append(frame)
+                    if len(buf) == batch:
+                        yield np.stack(buf)
+                        buf = []
+
+        return self._stream_infer(batches(), self.regress_smpl_u8, n,
+                                  cam_strategy, as_uint8, as_i420)
+
+    def inference_from_video(self, video_path: str,
+                             cam_strategy: str = "smooth", batch: int = 8,
+                             as_uint8: bool = False, as_i420: bool = False,
+                             fps: int | None = None):
+        """A video file -> preds: ffmpeg decodes to raw I420 at 224²
+        (``utils.video.stream_i420``; raises without ffmpeg), the packed
+        frames go to the device at 1.5 bytes a pixel and HMR unpacks them
+        there. The frame count is known only at the end: the last batch is
+        padded with its last frame and the pad dropped."""
+        self._require_source()
+        from impersonator_tpu_torch.utils.video import stream_i420
+        counter = {"n": 0}
+
+        def batches():
+            buf = []
+            for frame in stream_i420(video_path, size=224, fps=fps):
+                buf.append(frame)
+                counter["n"] += 1
+                if len(buf) == batch:
+                    yield np.stack(buf)
+                    buf = []
+            if buf:
+                buf.extend([buf[-1]] * (batch - len(buf)))
+                yield np.stack(buf)
+
+        out = self._stream_infer(batches(), self.regress_smpl_i420, None,
+                                 cam_strategy, as_uint8, as_i420)
+        return out[:counter["n"]]
+
+    def _upload(self, chunk, stream):
+        """A host batch -> the device: from pinned memory on ``stream``
+        (the compute stream waits for it), or as it is on the CPU."""
+        host = torch.from_numpy(np.ascontiguousarray(chunk))
+        if stream is None:
+            return host.to(self.device)
+        with torch.cuda.stream(stream):
+            x = host.pin_memory().to(self.device, non_blocking=True)
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_stream(stream)
+        x.record_stream(compute)
+        return x
+
+    @staticmethod
+    def _readback(packed, stream):
+        """Start ``packed``'s copy into pinned host memory on ``stream``
+        after the compute that made it -> (host tensor, event)."""
+        host = torch.empty(packed.shape, dtype=packed.dtype,
+                           pin_memory=True)
+        stream.wait_stream(torch.cuda.current_stream(packed.device))
+        with torch.cuda.stream(stream):
+            host.copy_(packed, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        packed.record_stream(stream)
+        return host, done
+
+    @staticmethod
+    def _drain(host, done):
+        done.synchronize()
+        return host.numpy()
+
+    @torch.no_grad()
+    def _stream_infer(self, chunks, hmr_fn, n, cam_strategy, as_uint8,
+                      as_i420):
+        """The streaming core: for each host batch of ``chunks`` (uint8 RGB
+        224² or packed I420), the upload, ``hmr_fn`` and the imitation
+        step; the first batch's first θ gives the camera reference
+        (``first_cam``). With ``as_i420`` (:func:`..ops.colorspace.
+        rgb_to_i420`) or ``as_uint8`` the preds are packed on the device
+        and each batch's readback goes into pinned host memory on a copy
+        stream, drained by a thread, so batch k transfers while batch k+1
+        decodes and computes; the result is then a host array (N, ...),
+        else a device tensor. On CUDA, uploads and readbacks run on two
+        side streams of their own. ``n`` None keeps every frame. An empty
+        stream raises ValueError."""
+        pack = rgb_to_i420 if as_i420 else rgb_to_u8 if as_uint8 else None
+        cuda = self.device.type == "cuda"
+        up_stream = torch.cuda.Stream(self.device) if cuda else None
+        down_stream = torch.cuda.Stream(self.device) if cuda else None
+        drain = ThreadPoolExecutor(1) if pack is not None and cuda else None
+        outs = []
+        self.first_cam = None
+        try:
+            for chunk in chunks:
+                thetas = hmr_fn(self._upload(chunk, up_stream))
+                if self.first_cam is None:
+                    self.first_cam = thetas[0:1, 0:3]
+                pred = self._imitate(self.src_info, thetas, self.first_cam,
+                                     cam_strategy)
+                if pack is None:
+                    outs.append(pred)
+                elif cuda:
+                    outs.append(drain.submit(
+                        self._drain, *self._readback(pack(pred),
+                                                     down_stream)))
+                else:
+                    outs.append(pack(pred).numpy())
+            if not outs:
+                raise ValueError("stream produced no frames (unreadable "
+                                 "or empty video?)")
+            if pack is None:
+                out = torch.cat(outs)
+            else:
+                out = np.concatenate([o.result() if drain is not None
+                                      else o for o in outs])
+        finally:
+            if drain is not None:
+                drain.shutdown()
+        return out if n is None else out[:n]

@@ -130,6 +130,16 @@ PORT_MODULES = [
     "impersonator_tpu_torch.utils.checkpoint",
     "impersonator_tpu_torch.utils.visualizer",
     "impersonator_tpu_torch.cli.train",
+    "impersonator_tpu_torch.cli.run_imitator",
+    "impersonator_tpu_torch.cli.run_swap",
+    "impersonator_tpu_torch.cli.run_view",
+    "impersonator_tpu_torch.cli.serve",
+    "impersonator_tpu_torch.cli.demos",
+    "impersonator_tpu_torch.ops.colorspace",
+    "impersonator_tpu_torch.data.native",
+    "impersonator_tpu_torch.utils.video",
+    "impersonator_tpu_torch.utils.profiling",
+    "impersonator_tpu_torch.utils.mesh_io",
     "impersonator_tpu_torch.utils.convert",
     "impersonator_tpu_torch.utils.cv_utils",
     "impersonator_tpu_torch.utils.precision",
