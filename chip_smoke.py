@@ -137,6 +137,31 @@ Phases, each failing the run (exit 1) on any error:
    call), and together run_imitator --i420, run_swap, run_view (16 views)
    and demos imitator, each a subprocess with --device cuda, exit 0, the
    files written and decodable;
+13. the remaining trainers at full width (256², batch 16, conv_dim 64, 6
+   res blocks, 4-layer PatchGANs, VGG19 and Sphere20a on, seeded
+   weights): the augmented trainer (tasks/trainer_aug.py: the Places2
+   stream, a U(-1, 1) stand-in here, and the Global + Local D) in bf16
+   and in float32, a warm-up step, 5 timed G+D steps and 1 G-only step
+   (1 zbuffer_bucket_rows and 1 zbuffer_bucket_flow launch each), ms per
+   step (CUDA events, median of 5), samples/s, peak memory, finite
+   losses, both nets moved, the float32 master and Adam's moments
+   float32, a profile of one bf16 step
+   (chiprun_out/profile_train_aug_step.txt); a small iPER + Places2 +
+   DeepFashion tree (60 JPEGs from the card's encoder) read by
+   dataset_by_name("iPER_fashion_place") through the loader on the card
+   (4 threads, nvJPEG) into one float32 aug step;
+   one float32 aug step card vs CPU with TF32 off at 128² under phase
+   11's bounds (both PatchGANs' biases before an instance norm left out
+   per tensor); the three ablation baselines (tasks/trainer_baseline.py)
+   in float32, a warm-up step and 3 timed steps each (2
+   zbuffer_bucket_rows launches a step, no flow), texture_warping's
+   extract_texture + render_textured card vs CPU on the CPU's raster
+   within TEX_TOL; soft_silhouette on the 12,880-face body card vs CPU
+   at 128² (SIL_TOL) with its camera gradient (SIL_GRAD_RTOL), and its
+   forward + backward time and peak memory at 256², batch 2; then
+   cli.train.main --model impersonator_trainer_aug and --model
+   feature_warping for one epoch of 4 steps each (launches 4 / 4 and
+   8 / 0);
 9. float32 with TF32 off, card against CPU on the same weights:
    swap_core on the card from the CPU's two states (preds within 1e-2),
    the flow kernel on the CPU's rotated meshes (fim equal to the twin's,
@@ -150,15 +175,18 @@ Phases, each failing the run (exit 1) on any error:
    wall time, the largest kernels and the z-buffer kernels' mean device
    time per launch (full tables in chiprun_out/profile_*.txt).
 
-Phases run in the order 1-4b, 7, 8, 8b, 10, 11, 12, 9, 5, 5b, 6. Each
-path (3c, 4, 4b, 7, 8, 8b, 10, 11's bf16, float32 and CLI runs, 12's
-streamed requests and /imitate) runs with
-every launch count set to 0 just before it and read just after, and
-fails if a kernel of the path never launched; the record's
+Phases run in the order 1-4b, 7, 8, 8b, 10, 11, 12, 13, 9, 5, 5b, 6.
+Each path (3c, 4, 4b, 7, 8, 8b, 10, 11's bf16, float32 and CLI runs,
+12's streamed requests and /imitate, 13's trainers and CLI runs) runs
+with every launch count set to 0 just before it and read just after,
+and fails if a kernel of the path never launched; the record's
 launches_by_path holds each path's counts ("train", "train_fp32",
 "train_cli" for phase 11; "host_io_u8", "host_io_i420" and
-"serve_imitate" for phase 12). The seconds of each phase and the whole
-script's wall time are printed before the record. The line before the
+"serve_imitate" for phase 12; "train_aug", "train_aug_fp32",
+"train_aug_disk", "train_concat", "train_texture_warping",
+"train_feature_warping", "train_aug_cli" and
+"train_feature_warping_cli" for phase 13). The seconds of each phase
+and the whole script's wall time are printed before the record. The line before the
 last is nvidia-smi's name and power limit, the one before it the kernels' JSON record (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its float operations
 over 67 TFLOP/s, the H100 SXM's published peaks, both counted on this
@@ -174,6 +202,7 @@ are random (seeded); no checkpoint is read.
 
 import contextlib
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -223,6 +252,11 @@ OPS_TEST, OPS_HIT = 15, 23
 JPEG_MAX_GAP, JPEG_OVER2_SHARE, JPEG_PSNR_DB = 3, 1e-4, 35.0
 U8_STREAM_SHARE, STREAM_TOL, SERVE_MEM_SLACK = 1e-3, 1e-5, 64 << 20
 IO_FRAMES, IO_BATCH = 64, 16     # phase 12's frames on disk and batch
+# phase 13: texture_warping's texels, card vs CPU on the same raster
+# (gathers and lerps in float32); the soft silhouette card vs CPU
+# (elementwise float32, sums of logs over 12,880 faces in another order)
+# and its camera gradient, relative L2
+TEX_TOL, SIL_TOL, SIL_GRAD_RTOL = 1e-5, 1e-5, 1e-3
 
 
 def lap(name):
@@ -1619,6 +1653,481 @@ def host_io_phase(cr, imi, imit_h, assets, cfg, src_img, thetas, req_thetas,
     return launches
 
 
+# -- phase 13: the remaining trainers ----------------------------------------
+
+def aug_train_batch(s, bs, seed):
+    """train_batch plus a Places2 stand-in 'bg' (bs, s, s, 3) U(-1, 1)."""
+    import numpy as np
+    batch = train_batch(s, bs, seed)
+    rng = np.random.default_rng(seed + 1000)
+    batch["bg"] = rng.uniform(-1, 1, (bs, s, s, 3)).astype(np.float32)
+    return batch
+
+
+def timed_steps(cr, st, batch, fns):
+    """Each fn(st, batch) in turn, CUDA events around each: (state, ms of
+    each, metrics of each as floats, launch counts over them)."""
+    import torch
+    torch.cuda.synchronize()
+    reset_counts(cr)
+    times, metrics = [], []
+    for fn in fns:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        st, m = fn(st, batch)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return st, times, metrics, read_counts(cr)
+
+
+def weights(st):
+    """A copy of G's and D's weights, {"G.<name>" | "D.<name>": tensor}."""
+    return {f"{n}.{k}": p.detach().clone()
+            for n, net in (("G", st.generator), ("D", st.discriminator))
+            for k, p in net.named_parameters()}
+
+
+def moved_and_master(st, w0):
+    """(share of each G tensor's weights that moved: the least over the
+    tensors the last step sent a gradient, mean share of D's; whether the
+    masters and Adam's moments are float32), against w0 (weights(st)
+    before the steps). feature_warping's source decoder feeds no loss:
+    its tensors get no gradient and stay."""
+    import numpy as np
+    import torch
+    nets = (("G", st.generator), ("D", st.discriminator))
+    moved = {n: [float((p.detach() != w0[f"{n}.{k}"]).float().mean())
+                 for k, p in net.named_parameters()
+                 if bool(p.grad.ne(0).any())] for n, net in nets}
+    master = all(p.dtype == torch.float32 and
+                 opt.state[p]["exp_avg"].dtype == torch.float32
+                 for (_, net), opt in zip(nets, (st.g_opt, st.d_opt))
+                 for p in net.parameters())
+    return min(moved["G"]), float(np.mean(moved["D"])), master
+
+
+def aug_step_card_vs_cpu(ta, assets, dev):
+    """One float32 aug step (TF32 off) on the CPU and on the card from the
+    same weights, fresh Adam states and the CPU's raster products (128²,
+    conv_dim 64, 6 res blocks, the 4-layer Global + Local D, batch 2, VGG
+    and face on): (CPU losses, loss gap, G gaps, D gaps, share of
+    weights whose Adam step differs, CPU seconds)."""
+    import torch
+    from impersonator_tpu_torch.config import TrainConfig
+    from impersonator_tpu_torch.data.loader import stage_batch
+    t0 = time.perf_counter()
+    cfg = TrainConfig(image_size=128, batch_size=2, repeat_num=6,
+                      model="impersonator_trainer_aug")
+    tr_c = ta.build_aug_trainer(cfg, assets, device="cpu")
+    tr_g = ta.build_aug_trainer(cfg, assets, device=dev)
+    st_c = tr_c.init_state()
+    st_g = tr_g.init_state(copy.deepcopy(st_c.generator),
+                           copy.deepcopy(st_c.discriminator))
+    b = stage_batch(aug_train_batch(128, 2, 5), "cpu")
+    inputs, src, tsf, bg = ta.aug_inputs(tr_c, b)
+
+    def named(st):
+        return [(f"{n}.{k}", p) for n, net in (("G", st.generator),
+                                               ("D", st.discriminator))
+                for k, p in net.named_parameters()]
+    w0 = {k: p.detach().clone() for k, p in named(st_c)}
+    out = []
+    for tr, st, d in ((tr_c, st_c, "cpu"), (tr_g, st_g, dev)):
+        inp = {k: None if v is None else v.to(d) for k, v in inputs.items()}
+        st, m = ta.make_aug_update(tr)(st, inp, src.to(d), tsf.to(d),
+                                       bg.to(d))
+        out.append(({k: float(v) for k, v in m.items()},
+                    {k: p.grad.cpu() for k, p in named(st)},
+                    {k: p.detach().cpu() for k, p in named(st)}))
+    cpu_s = time.perf_counter() - t0
+    (m_c, g_c, w_c), (m_g, g_g, w_g) = out
+    loss_gap = max(abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in m_c
+                   if m_c[k] != 0.0)
+    # both PatchGANs at 4 layers: the convs before the norms are
+    # model.{2,5,8,11}
+    zero = {"G": (), "D": tuple(f"D.{h}.model.{i}.bias"
+                                for h in ("global_model", "local_model")
+                                for i in (2, 5, 8, 11))}
+    gaps = {n: grad_gaps({k: v for k, v in g_g.items() if k[0] == n},
+                         {k: v for k, v in g_c.items() if k[0] == n},
+                         zero[n])
+            for n in "GD"}
+    moved = sum(int((w_c[k] != w0[k]).sum()) for k in w0)
+    flips = sum(int(((w_g[k] - w_c[k]).abs() > 1e-4).sum()) for k in w0)
+    return m_c, loss_gap, gaps, flips / moved, cpu_s
+
+
+def aug_phase(cr, ta, assets, dev, tag):
+    """Phase 13's augmented trainer at full width in bf16 and float32;
+    returns ({path: launch counts}, the float32 trainer and state)."""
+    import numpy as np
+    import torch
+    from impersonator_tpu_torch.config import TrainConfig
+    from impersonator_tpu_torch.data.loader import stage_batch
+    s, bs = GEOM["s"], 16
+    batch = stage_batch(aug_train_batch(s, bs, 7), dev)
+    by_path = {}
+    for dtype in ("bfloat16", "float32"):
+        base = torch.cuda.memory_allocated()
+        cfg = TrainConfig(image_size=s, batch_size=bs, repeat_num=6,
+                          model="impersonator_trainer_aug", train_dtype=dtype)
+        tr = ta.build_aug_trainer(cfg, assets, device=dev)
+        st = tr.init_state()
+        step = ta.make_aug_train_step(tr, train_d=True)
+        step_g = ta.make_aug_train_step(tr, train_d=False)
+        st, _ = step(st, batch)                    # warm-up
+        w0 = weights(st)
+        torch.cuda.reset_peak_memory_stats()
+        st, times, metrics, launches = timed_steps(cr, st, batch,
+                                                   [step] * 5 + [step_g])
+        peak = torch.cuda.max_memory_allocated() - base
+        path = "train_aug" if dtype == "bfloat16" else "train_aug_fp32"
+        by_path[path] = launches
+        check(launches["zbuffer_bucket_rows"] == 6 and
+              launches["zbuffer_bucket_flow"] == 6,
+              f"{path} launches {launches} (1 each a step, 6 steps)")
+        check(all(np.isfinite(list(m.values())).all() for m in metrics),
+              f"{path}: non-finite losses {metrics}")
+        check("d_loss" not in metrics[-1] and "d_loss" in metrics[0],
+              f"{path}: the G-only step's metrics")
+        g_moved, d_moved, master = moved_and_master(st, w0)
+        check(g_moved > 0.5 and d_moved > 0.5,
+              f"{path}: weights moved G {g_moved}, D {d_moved}")
+        check(master, f"{path}: the master or Adam's moments left float32")
+        ms = sorted(times[:5])[2]
+        print(f"train_aug ({dtype}): {ms:.3f} ms per G+D step (median of "
+              f"5, CUDA events; {[round(t, 3) for t in times[:5]]}), "
+              f"{bs / ms * 1e3:.2f} samples/s, G-only step {times[5]:.3f} "
+              f"ms; peak memory {peak / 2**30:.2f} GiB above the "
+              f"{base / 2**30:.2f} GiB the earlier phases hold; launches "
+              f"over 5 G+D + 1 G-only {launches}; batch 16, {s}^2, conv_dim "
+              f"64, 6 res blocks, Global + Local PatchGAN 4 layers "
+              f"instance, VGG19 + Sphere20a on, float32 master {tag}",
+              flush=True)
+        print(f"train_aug ({dtype}): losses step 1 "
+              f"{ {k: round(v, 5) for k, v in metrics[0].items()} }, step 5 "
+              f"{ {k: round(v, 5) for k, v in metrics[4].items()} }; share "
+              f"of weights moved: G min {g_moved:.4f}, D mean "
+              f"{d_moved:.4f}", flush=True)
+        if dtype == "bfloat16":
+            wall, kern, rows = profile_request(
+                lambda: step(st, batch),
+                Path("chiprun_out") / "profile_train_aug_step.txt")
+            zb = sum(r[0] for r in rows if "zbuffer" in r[2])
+            print(f"profile, one bf16 aug step at batch 16: wall "
+                  f"{wall:.2f} ms (profiler on), {kernel_share(kern, wall)};"
+                  f" the z-buffers {zb:.3f} ms "
+                  f"({not_measured(kern and zb / kern, '.4f')} of the "
+                  f"kernel time) {tag}", flush=True)
+            for k_ms, n, name in rows[:10]:
+                print(f"profile train_aug: {k_ms:9.3f} ms {n:5d} x "
+                      f"{name[:90]}")
+            del st, tr
+            torch.cuda.empty_cache()
+    return by_path, tr, st
+
+
+def baseline_phase(cr, tb, smpl_ops, assets, dev, tag):
+    """Phase 13's three ablation baselines at full width in float32 (VGG
+    and face on): a warm-up step, then 3 timed G+D steps each; and
+    texture_warping's texture card vs CPU. Returns {path: launches}."""
+    import numpy as np
+    import torch
+    from impersonator_tpu_torch.config import TrainConfig
+    from impersonator_tpu_torch.data.loader import stage_batch
+    s, bs = GEOM["s"], 16
+    batch = stage_batch(train_batch(s, bs, 9), dev)
+    by_path = {}
+    for mode in tb.BASELINE_MODES:
+        base = torch.cuda.memory_allocated()
+        cfg = TrainConfig(image_size=s, batch_size=bs, repeat_num=6,
+                          model=mode)
+        tr = tb.build_baseline_trainer(cfg, assets, device=dev)
+        st = tr.init_state()
+        step = tb.make_train_step(tr)
+        st, _ = step(st, batch)                    # warm-up
+        w0 = weights(st)
+        torch.cuda.reset_peak_memory_stats()
+        st, times, metrics, launches = timed_steps(cr, st, batch,
+                                                   [step] * 3)
+        peak = torch.cuda.max_memory_allocated() - base
+        by_path[f"train_{mode}"] = launches
+        check(launches["zbuffer_bucket_rows"] == 6 and
+              launches["zbuffer_bucket_flow"] == 0,
+              f"{mode} launches {launches} (2 rows a step, 3 steps)")
+        check(all(np.isfinite(list(m.values())).all() for m in metrics)
+              and "d_total" in metrics[0], f"{mode}: losses {metrics}")
+        g_moved, d_moved, master = moved_and_master(st, w0)
+        check(g_moved > 0.5 and d_moved > 0.5 and master,
+              f"{mode}: weights moved G {g_moved}, D {d_moved}, float32 "
+              f"{master}")
+        ms = sorted(times)[1]
+        print(f"train_{mode} (float32): {ms:.3f} ms per G+D step (median "
+              f"of 3, CUDA events; {[round(t, 3) for t in times]}), "
+              f"{bs / ms * 1e3:.2f} samples/s; peak memory "
+              f"{peak / 2**30:.2f} GiB; launches over 3 steps {launches}; "
+              f"batch 16, {s}^2, conv_dim 64, 6 res blocks, PatchGAN 4 "
+              f"layers over 9 channels, VGG19 + Sphere20a on; losses step "
+              f"1 { {k: round(v, 5) for k, v in metrics[0].items()} } {tag}",
+              flush=True)
+        if mode == "texture_warping":
+            tex_err = texture_card_vs_cpu(tr, smpl_ops, assets, batch)
+            print(f"texture_warping: extract_texture + render_textured on "
+                  f"the card against the CPU on the CPU's raster (2 "
+                  f"bodies, {s}^2, tex_size {tr.renderer.tex_size}): max "
+                  f"|d| {tex_err} (bound {TEX_TOL})", flush=True)
+            check(tex_err <= TEX_TOL, f"texture card vs CPU {tex_err}")
+        del st, tr
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def texture_card_vs_cpu(tr, smpl_ops, assets, batch):
+    """The texture-warping input of 2 batch items: the CPU renderer's
+    source and target rasters, then extract_texture + render_textured on
+    the CPU and on the card from the same cameras, vertices, fim and wim.
+    Returns max |d|."""
+    from impersonator_tpu_torch.tasks.renderer import SMPLRenderer
+    r_c = SMPLRenderer.create(assets, "cpu", image_size=GEOM["s"])
+    params = smpl_ops.SMPLParams.from_assets(assets, "cpu")
+    smpls = batch["smpls"][:2].cpu()
+    img = batch["images"][:2, 0].cpu().permute(0, 2, 3, 1).contiguous()
+    src = smpl_ops.get_details(params, smpls[:, 0], assets.parents)
+    ref = smpl_ops.get_details(params, smpls[:, 1], assets.parents)
+    _, fim, wim = r_c.render_fim_wim(ref["cam"], ref["verts"])
+    out = []
+    for r, d in ((r_c, "cpu"), (tr.renderer, tr.device)):
+        tex = r.extract_texture(img.to(d), src["cam"].to(d),
+                                src["verts"].to(d))
+        out.append(r.render_textured(fim.to(d), wim.to(d), tex).cpu())
+    return float((out[0] - out[1]).abs().max())
+
+
+def soft_silhouette_checks(rast, soft, smpl_ops, assets, dev, tag):
+    """soft_silhouette and the gradient of a silhouette loss with respect
+    to the camera on the 12,880-face body, card vs CPU at 128² (batch 1),
+    and the card's forward + backward time and peak memory at 256²
+    (batch 2). Returns (max |dsil|, gradient gap)."""
+    import numpy as np
+    import torch
+    params = smpl_ops.SMPLParams.from_assets(assets, "cpu")
+    faces = torch.as_tensor(np.asarray(assets.faces, np.int64))
+    theta = torch.from_numpy(train_batch(128, 2, 11)["smpls"][:, 0])
+    info = smpl_ops.get_details(params, theta, assets.parents)
+    target = soft.soft_silhouette(rast.project_to_raster_space(
+        info["verts"][:1], info["cam"][:1] * 1.05, faces), 128)
+
+    def run(d, cam, verts, s):
+        cam = cam.to(d).requires_grad_(True)
+        fv = rast.project_to_raster_space(verts.to(d), cam, faces.to(d))
+        sil = soft.soft_silhouette(fv, s)
+        loss = ((sil - target.to(d)) ** 2).sum() if s == 128 else sil.sum()
+        loss.backward()
+        return sil.detach().cpu(), cam.grad.cpu()
+
+    t0 = time.perf_counter()
+    sil_c, g_c = run("cpu", info["cam"][:1], info["verts"][:1], 128)
+    cpu_s = time.perf_counter() - t0
+    sil_g, g_g = run(dev, info["cam"][:1], info["verts"][:1], 128)
+    sil_err = float((sil_g - sil_c).abs().max())
+    g_gap = float((g_g - g_c).norm() / g_c.norm())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_ms(lambda: run(dev, info["cam"], info["verts"], GEOM["s"]),
+                   3)
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"soft_silhouette, 12,880 faces: card vs CPU at 128^2 max |dsil| "
+          f"{sil_err} (bound {SIL_TOL}), camera gradient relative L2 gap "
+          f"{g_gap:.3e} (bound {SIL_GRAD_RTOL}; CPU side {cpu_s:.1f} s); "
+          f"forward + backward at {GEOM['s']}^2, batch 2: {ms:.3f} ms "
+          f"(median of 3, CUDA events), peak memory {peak / 2**30:.2f} GiB "
+          f"(each face chunk recomputed in the backward) {tag}", flush=True)
+    check(sil_err <= SIL_TOL, f"soft silhouette card vs CPU {sil_err}")
+    check(g_gap <= SIL_GRAD_RTOL, f"soft silhouette gradient {g_gap}")
+    return sil_err, g_gap
+
+
+def write_data_tree(root, native, dev, s):
+    """A small iPER + Places2 + DeepFashion tree under root, every image a
+    JPEG from the card's encoder: 12 videos of 3 frames at s² with
+    pose_shape.pkl, 6 Places2 images larger than s² and 4 DeepFashion
+    pairs with _smpl.pkl files. Returns the three folders."""
+    import os
+    import pickle
+    import numpy as np
+    rng = np.random.default_rng(13)
+    frames = smooth_frames(36 + 8, s, 21)
+    places = smooth_frames(6, s + 48, 22)
+
+    def jpeg(path, img):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(native.encode_jpeg(img, device=dev))
+
+    def thetas(n):
+        t = train_batch(8, n, int(rng.integers(1 << 30)))["smpls"][:, 0]
+        return {"cams": t[:, :3], "pose": t[:, 3:75], "shape": t[:, 75:]}
+
+    iper, place, fashion = (os.path.join(root, d)
+                            for d in ("iPER", "places", "fashion"))
+    vids = [f"{v:03d}/1/1" for v in range(12)]
+    for v, vid in enumerate(vids):
+        for i in range(3):
+            jpeg(os.path.join(iper, "images_HD", vid, f"{i:04d}.jpg"),
+                 frames[3 * v + i])
+        os.makedirs(os.path.join(iper, "smpls", vid))
+        with open(os.path.join(iper, "smpls", vid, "pose_shape.pkl"),
+                  "wb") as f:
+            pickle.dump(thetas(3), f)
+    with open(os.path.join(iper, "train.txt"), "w") as f:
+        f.write("\n".join(vids) + "\n")
+    for i, img in enumerate(places):
+        jpeg(os.path.join(place, f"cat{i % 2}", f"{i:04d}.jpg"), img)
+    lines = []
+    for p in range(4):
+        pair = []
+        for k in range(2):
+            rel = f"img/p{p}_{k}.jpg"
+            jpeg(os.path.join(fashion, rel), frames[36 + 2 * p + k])
+            with open(os.path.join(fashion, f"img/p{p}_{k}_smpl.pkl"),
+                      "wb") as f:
+                pickle.dump({a: b[0] for a, b in thetas(1).items()}, f)
+            pair.append(rel)
+        lines.append(" ".join(pair))
+    with open(os.path.join(fashion, "pairs.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return iper, place, fashion
+
+
+def disk_data_step(cr, ta, native, tr, st, dev, tag):
+    """The tree of write_data_tree read by dataset_by_name(
+    "iPER_fashion_place") through the loader on the card (4 threads,
+    nvJPEG) into one float32 aug step. Returns the step's launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    from impersonator_tpu_torch.data.datasets import dataset_by_name
+    from impersonator_tpu_torch.data.loader import DataLoader
+    s = GEOM["s"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        iper, place, fashion = write_data_tree(tmp, native, dev, s)
+        t1 = time.perf_counter()
+        cfg = dataclasses.replace(tr.cfg, data_dir=iper, place_dir=place,
+                                  fashion_dir=fashion)
+        ds = dataset_by_name("iPER_fashion_place", cfg, device=dev)
+        check(len(ds) == 16, f"iPER_fashion_place items {len(ds)}")
+        batches = list(DataLoader(ds, 16, num_workers=4, seed=0,
+                                  device=dev))
+        check(len(batches) == 1, f"disk batches {len(batches)}")
+        batch = batches[0]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    check(batch["images"].shape == (16, 2, 3, s, s) and
+          batch["bg"].shape == (16, 3, s, s) and
+          batch["images"].device.type == torch.device(dev).type,
+          f"disk batch {[(k, tuple(v.shape)) for k, v in batch.items()]}")
+    st, _, metrics, launches = timed_steps(
+        cr, st, batch, [ta.make_aug_train_step(tr)])
+    check(launches["zbuffer_bucket_rows"] == 1 and
+          launches["zbuffer_bucket_flow"] == 1,
+          f"disk aug step launches {launches}")
+    check(np.isfinite(list(metrics[0].values())).all(),
+          f"disk aug step losses {metrics[0]}")
+    print(f"iPER + Places2 + DeepFashion on disk (60 JPEGs from the card's "
+          f"encoder, {t1 - t0:.2f} s): iPER_fashion_place, 16 items, one "
+          f"batch of 16 through the loader on the card (4 threads, nvJPEG) "
+          f"{t2 - t1:.2f} s with set-up; one float32 aug step on it, "
+          f"launches {launches}, losses "
+          f"{ {k: round(v, 5) for k, v in metrics[0].items()} } {tag}",
+          flush=True)
+    return launches
+
+
+def trainer_cli_runs(cr, tag):
+    """cli.train.main in-process on the card at 256², batch 16, one epoch
+    of the synthetic data (64 items: 4 steps) for --model
+    impersonator_trainer_aug (synthetic_bg) and --model feature_warping.
+    Returns {path: launches}."""
+    import tempfile
+    from impersonator_tpu_torch.cli import train as cli
+    by_path = {}
+    want = {"impersonator_trainer_aug": (4, 4, "train_aug_cli"),
+            "feature_warping": (8, 0, "train_feature_warping_cli")}
+    with tempfile.TemporaryDirectory() as tmp:
+        for model, (rows, flow, path) in want.items():
+            reset_counts(cr)
+            t0 = time.perf_counter()
+            state = cli.main(["--model", model, "--image_size",
+                              str(GEOM["s"]), "--batch_size", "16",
+                              "--nepochs_no_decay", "1", "--nepochs_decay",
+                              "0", "--checkpoints_dir", tmp, "--name",
+                              model])
+            dt = time.perf_counter() - t0
+            launches = read_counts(cr)
+            by_path[path] = launches
+            names = {p.name for p in (Path(tmp) / model).iterdir()}
+            check({f"{k}_epoch_1_id_{l}.pth" for k in ("net", "opt")
+                   for l in "GD"} <= names, f"{model} files {sorted(names)}")
+            p = next(state.generator.parameters())
+            n_adam = int(state.g_opt.state[p]["step"])
+            check(n_adam == 4, f"{model} Adam steps {n_adam}")
+            check(launches["zbuffer_bucket_rows"] == rows and
+                  launches["zbuffer_bucket_flow"] == flow,
+                  f"{model} cli launches {launches}")
+            print(f"cli.train --model {model}: one epoch (4 steps, batch "
+                  f"16, {GEOM['s']}^2, float32, dataset auto) {dt:.2f} s "
+                  f"with set-up, checkpoint files written, launches "
+                  f"{launches} {tag}", flush=True)
+    return by_path
+
+
+def remaining_trainers_phase(cr, smpl_ops, assets, dev, tag):
+    """Phase 13 (module docstring); returns {path: launch counts}."""
+    import torch
+    from impersonator_tpu_torch.data import native
+    from impersonator_tpu_torch.ops import rasterizer as rast
+    from impersonator_tpu_torch.ops import soft_raster as soft
+    from impersonator_tpu_torch.tasks import trainer_aug as ta
+    from impersonator_tpu_torch.tasks import trainer_baseline as tb
+    t_phase = time.perf_counter()
+    by_path, tr, st = aug_phase(cr, ta, assets, dev, tag)
+    by_path["train_aug_disk"] = disk_data_step(cr, ta, native, tr, st, dev,
+                                               tag)
+    del st, tr
+    torch.cuda.empty_cache()
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    m_c, loss_gap, gaps, flips, cpu_s = aug_step_card_vs_cpu(ta, assets, dev)
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    print(f"train_aug step card vs CPU, float32, TF32 off (128^2, conv_dim "
+          f"64, 6 res blocks, batch 2, VGG + face on; CPU side {cpu_s:.1f} "
+          f"s): losses { {k: round(v, 5) for k, v in m_c.items()} }, max "
+          f"relative gap {loss_gap:.3e} (bound {TUNE_LOSS_RTOL}); gradient "
+          f"L2 gap per tensor / over all: G {gaps['G'][0]:.3e} / "
+          f"{gaps['G'][1]:.3e}, D {gaps['D'][0]:.3e} / {gaps['D'][1]:.3e} "
+          f"(bounds {TUNE_GRAD_RTOL} / {TUNE_GRAD_ALL_RTOL}; D's "
+          f"{gaps['D'][2]} left out per tensor: 0 in exact arithmetic); "
+          f"weights whose Adam step differs {flips:.3e} of those moved "
+          f"(bound {TUNE_STEP_FLIPS})", flush=True)
+    check(loss_gap <= TUNE_LOSS_RTOL, f"aug losses card vs CPU {loss_gap}")
+    for n in "GD":
+        check(gaps[n][0] <= TUNE_GRAD_RTOL and
+              gaps[n][1] <= TUNE_GRAD_ALL_RTOL,
+              f"aug {n} gradient card vs CPU {gaps[n]}")
+    check(flips <= TUNE_STEP_FLIPS, f"aug step card vs CPU: {flips}")
+    by_path.update(baseline_phase(cr, tb, smpl_ops, assets, dev, tag))
+    soft_silhouette_checks(rast, soft, smpl_ops, assets, dev, tag)
+    by_path.update(trainer_cli_runs(cr, tag))
+    print(f"remaining trainers phase: {time.perf_counter() - t_phase:.1f} s "
+          f"of wall time", flush=True)
+    return by_path
+
+
 def main():
     import numpy as np
     import torch
@@ -2047,6 +2556,11 @@ def main():
     io_launches = host_io_phase(cr, imi, imit_h, assets, cfg, src_img,
                                 thetas, req_thetas, dev, tag)
 
+    # -- phase 13: the remaining trainers at full width ---------------------
+    lap("13")
+    trainer_launches = remaining_trainers_phase(cr, smpl_ops, assets, dev,
+                                                tag)
+
     # -- phase 9: fp32 (TF32 off) card vs CPU: swap, view, DeepFill ----------
     lap("9")
     torch.backends.cudnn.allow_tf32 = False
@@ -2244,7 +2758,7 @@ def main():
                "deepfill_front_warp": launches_bg,
                "post_tune_imitator": pt_launches,
                "post_tune_swapper": pt_sw_launches, **train_launches,
-               **io_launches}
+               **io_launches, **trainer_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"impersonator_tpu_torch/csrc/{src}",

@@ -8,10 +8,20 @@ the validation pass on a wall-clock cadence, "latest" snapshots and a
 checkpoint per epoch through an :class:`AsyncCheckpointer`, and resume
 from ``--load_epoch`` (-1: the latest epoch on disk).
 
+``--model`` picks the trainer: ``impersonator_trainer`` (the base LWB
+trainer), ``impersonator_trainer_aug`` (Places2 backgrounds, Global +
+Local D) or an ablation baseline (``concat``, ``texture_warping``,
+``feature_warping``). As in the JAX package, the augmented and baseline
+runs have no validation pass and no visuals. ``--dataset_mode auto``
+reads ``iPER`` (``iPER_place`` for the augmented trainer) when an SMPL
+model is configured, else the synthetic pairs (``synthetic_bg``).
+
 Usage:
     python -m impersonator_tpu_torch.cli.train --dataset_mode synthetic
     python -m impersonator_tpu_torch.cli.train --dataset_mode synthetic \\
         --device cpu --image_size 64 --batch_size 2
+    python -m impersonator_tpu_torch.cli.train --model feature_warping \\
+        --dataset_mode synthetic --device cpu --image_size 64
 
 Besides every TrainConfig flag: ``--device`` (default cuda; no fallback
 when there is no card).
@@ -28,6 +38,8 @@ from impersonator_tpu_torch.config import TrainConfig, from_args
 from impersonator_tpu_torch.data.datasets import dataset_by_name
 from impersonator_tpu_torch.data.loader import DataLoader
 from impersonator_tpu_torch.tasks import trainer as trainer_mod
+from impersonator_tpu_torch.tasks import trainer_aug as aug_mod
+from impersonator_tpu_torch.tasks import trainer_baseline as base_mod
 from impersonator_tpu_torch.utils import checkpoint as ckpt
 from impersonator_tpu_torch.utils.visualizer import Visualizer
 
@@ -42,7 +54,10 @@ def _parse_extra(argv):
 def _dataset_name(cfg) -> str:
     if cfg.dataset_mode != "auto":
         return cfg.dataset_mode
-    return "synthetic" if not cfg.smpl_model else "iPER"
+    aug = cfg.model == "impersonator_trainer_aug"
+    if not cfg.smpl_model:
+        return "synthetic_bg" if aug else "synthetic"
+    return "iPER_place" if aug else "iPER"
 
 
 def _validate(eval_fn, state, val_loader, n_iters: int) -> dict:
@@ -60,27 +75,37 @@ def _validate(eval_fn, state, val_loader, n_iters: int) -> dict:
 def main(argv=None):
     extra = _parse_extra(argv)
     cfg = from_args(TrainConfig, argv)
-    if cfg.model != "impersonator_trainer":
-        raise NotImplementedError(
-            f"--model {cfg.model}: only impersonator_trainer is ported "
-            "(ROADMAP.md Queue 1 items 10b-ii and 10c)")
+    if cfg.model == "impersonator_trainer":
+        build, make_step = (trainer_mod.build_trainer,
+                            trainer_mod.make_train_step)
+    elif cfg.model == "impersonator_trainer_aug":
+        build, make_step = (aug_mod.build_aug_trainer,
+                            aug_mod.make_aug_train_step)
+    elif cfg.model in base_mod.BASELINE_MODES:
+        build, make_step = (base_mod.build_baseline_trainer,
+                            base_mod.make_train_step)
+    else:
+        raise ValueError(f"--model {cfg.model} is not a trainer")
     cfg.save("train")
-    trainer = trainer_mod.build_trainer(cfg, device=extra.device)
+    trainer = build(cfg, device=extra.device)
     state = trainer.init_state()
 
     name = _dataset_name(cfg)
-    loader = DataLoader(dataset_by_name(name, cfg), cfg.batch_size,
-                        num_workers=cfg.n_threads, seed=cfg.seed,
-                        device=trainer.device)
-    val_loader = DataLoader(
-        dataset_by_name(name, cfg, ids_file=cfg.test_ids_file),
-        cfg.batch_size, num_workers=1, seed=cfg.seed + 1,
-        device=trainer.device)
+    loader = DataLoader(dataset_by_name(name, cfg, device=trainer.device),
+                        cfg.batch_size, num_workers=cfg.n_threads,
+                        seed=cfg.seed, device=trainer.device)
     vis = Visualizer(cfg.expr_dir())
-    step_fn = trainer_mod.make_train_step(trainer, train_d=True)
-    step_g_only = trainer_mod.make_train_step(trainer, train_d=False)
-    visuals_fn = trainer_mod.make_visuals_fn(trainer)
-    eval_fn = trainer_mod.make_train_step(trainer, eval_only=True)
+    step_fn = make_step(trainer, train_d=True)
+    step_g_only = make_step(trainer, train_d=False)
+    visuals_fn = eval_fn = val_loader = None
+    if cfg.model == "impersonator_trainer":
+        val_loader = DataLoader(
+            dataset_by_name(name, cfg, ids_file=cfg.test_ids_file,
+                            device=trainer.device),
+            cfg.batch_size, num_workers=1, seed=cfg.seed + 1,
+            device=trainer.device)
+        visuals_fn = trainer_mod.make_visuals_fn(trainer)
+        eval_fn = trainer_mod.make_train_step(trainer, eval_only=True)
 
     start_epoch = cfg.resolve_load_epoch()
     if start_epoch > 0:
@@ -107,7 +132,8 @@ def main(argv=None):
                                              dt / cfg.batch_size)
                     vis.log_scalars(i_step, epoch, errors)
                     last_print = time.time()
-                if time.time() - last_display > cfg.display_freq_s:
+                if (visuals_fn is not None
+                        and time.time() - last_display > cfg.display_freq_s):
                     vis.save_images(i_step, visuals_fn(state, batch))
                     val_errors = _validate(eval_fn, state, val_loader,
                                            cfg.num_iters_validate)

@@ -1,1 +1,28 @@
-"""Networks (torch nn.Modules, NCHW)."""
+"""Networks (torch nn.Modules, NCHW) and their registry (torch port of
+``impersonator_tpu/models/__init__.py:18-34``)."""
+
+
+def get_by_name(network_name: str, **kwargs):
+    """The network ``network_name`` built with ``kwargs`` (the reference's
+    NetworksFactory names)."""
+    if network_name == "impersonator":
+        from impersonator_tpu_torch.models.generator import \
+            ImpersonatorGenerator as cls
+    elif network_name == "deepfillv2":
+        from impersonator_tpu_torch.models.inpaintor import \
+            InpaintSANet as cls
+    elif network_name == "discriminator_patch_gan":
+        from impersonator_tpu_torch.models.discriminator import \
+            PatchDiscriminator as cls
+    elif network_name == "global_local":
+        from impersonator_tpu_torch.models.discriminator import \
+            GlobalLocalDiscriminator as cls
+    elif network_name == "multi_scale":
+        from impersonator_tpu_torch.models.discriminator import \
+            MultiScaleDiscriminator as cls
+    elif network_name == "hmr":
+        from impersonator_tpu_torch.models.hmr import \
+            HumanModelRecovery as cls
+    else:
+        raise ValueError(f"Network {network_name} not recognized.")
+    return cls(**kwargs)

@@ -13,7 +13,9 @@ or the fused correspondence flow. Torch port of
 * :func:`rasterize_fim_wim_tiled` (:544) — the fixed-slot path: up to
   ``cap`` candidates per tile from one ``(tile·nf + fid)`` pair sort,
   plus 16 oversized-face slots, through ``cuda_raster.zbuffer_tiles``;
-  :func:`raster_tile_stats` (:251) counts what its cap drops.
+  :func:`raster_tile_stats` (:251) counts what its cap drops;
+* :func:`render_silhouette` and :func:`depth_from_fim_wim` (:220-248) —
+  the coverage mask and the perspective depth of given raster products.
 
 The rasterizer is non-differentiable; callers run it under no_grad.
 Semantics (cull test, pixel-centre inside test, clipped renormalised
@@ -321,6 +323,27 @@ def rasterize_fim_wim_tiled(face_verts, image_size: int = 256,
     packed, cand, valid = _tiled_candidates(face_verts.float(), s, tile, cap,
                                             span, far)
     return cuda_raster.zbuffer_tiles(packed, cand, valid, s, tile, near, far)
+
+
+def render_silhouette(fim):
+    """Binary silhouette of a face-index map, (B, S, S) float32."""
+    return (fim >= 0).float()
+
+
+def depth_from_fim_wim(face_verts, fim, wim, far: float = DEFAULT_FAR):
+    """Perspective-correct depth (B, S, S) float32 from the z-buffer's
+    winners, ``far`` on background: one gather of the winning face's
+    vertex z, then 1 / Σ w_k / z_k, the kernel's depth. A pixel whose
+    Σ w / z is 0 divides by 1 instead.
+
+    face_verts (B, nf, 3, 3); fim (B, S, S); wim (B, S, S, 3)."""
+    zv = face_verts[..., 2]                                   # (B, nf, 3)
+    rows = torch.arange(zv.shape[0], device=zv.device)[:, None, None]
+    z_face = zv[rows, fim.clamp(min=0).long()]                # (B, S, S, 3)
+    inv_z = (wim / z_face).sum(-1)
+    inv_z = torch.where(inv_z == 0.0, torch.ones_like(inv_z), inv_z)
+    return torch.where(fim >= 0, 1.0 / inv_z,
+                       torch.full_like(inv_z, far)).float()
 
 
 @torch.no_grad()

@@ -1,23 +1,15 @@
-"""Task registry (torch port of ``impersonator_tpu/tasks/factory.py:14-26``).
-
-The inference tasks and the single-card adversarial trainer are ported;
-the augmented trainer and the ablation baselines come with ``ROADMAP.md``
-Queue 1 items 10b-ii and 10c and raise until then.
-"""
+"""Task registry (torch port of ``impersonator_tpu/tasks/factory.py:14-37``):
+the inference drivers, and the trainer of each training model name — the
+base trainer, the background-augmented one and the three ablation
+baselines."""
 
 from __future__ import annotations
-
-_NOT_PORTED = {
-    "impersonator_trainer_aug": "10b-ii (trainer_aug)",
-    "concat": "10c (ablation baselines)",
-    "texture_warping": "10c (ablation baselines)",
-    "feature_warping": "10c (ablation baselines)",
-}
 
 
 def get_by_name(name: str, cfg, device="cuda", **kwargs):
     """The task ``name`` on ``device`` (default CUDA). A trainer name
-    returns the trainer (``tasks.trainer.Trainer``) of a TrainConfig."""
+    returns the trainer (``tasks.trainer.Trainer`` or its subclass) of a
+    TrainConfig."""
     if name == "imitator":
         from impersonator_tpu_torch.tasks.imitator import Imitator as cls
     elif name == "swapper":
@@ -29,10 +21,14 @@ def get_by_name(name: str, cfg, device="cuda", **kwargs):
     elif name == "impersonator_trainer":
         from impersonator_tpu_torch.tasks.trainer import build_trainer
         return build_trainer(cfg, device=device, **kwargs)
-    elif name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP.md Queue 1 item "
-            f"{_NOT_PORTED[name]})")
+    elif name == "impersonator_trainer_aug":
+        from impersonator_tpu_torch.tasks.trainer_aug import \
+            build_aug_trainer
+        return build_aug_trainer(cfg, device=device, **kwargs)
+    elif name in ("concat", "texture_warping", "feature_warping"):
+        from impersonator_tpu_torch.tasks.trainer_baseline import \
+            build_baseline_trainer
+        return build_baseline_trainer(cfg, device=device, **kwargs)
     else:
         raise ValueError(f"Model {name} not recognized.")
     return cls(cfg, device=device, **kwargs)

@@ -287,6 +287,7 @@ class Imitator:
         self.assets = assets if assets is not None else cfg.assets()
         self.renderer = SMPLRenderer.create(self.assets, self.device,
                                             image_size=cfg.image_size,
+                                            tex_size=cfg.tex_size,
                                             has_front=cfg.front_warp)
         self.smpl_params = smpl_ops.SMPLParams.from_assets(self.assets,
                                                            self.device)

@@ -33,6 +33,7 @@ leaves it out.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Optional
 
 import torch
@@ -147,20 +148,18 @@ class Trainer:
     def init_state(self, generator: ImpersonatorGenerator | None = None,
                    discriminator: PatchDiscriminator | None = None,
                    seed: int | None = None) -> TrainState:
-        """A fresh state on the trainer's device: the given nets, or a
-        full-width generator (conv_dim 64) and the config's PatchGAN with
-        seeded random weights (``seed``, cfg.seed by default); Adam for
+        """A fresh state on the trainer's device: the given nets, or
+        :meth:`new_generator` and :meth:`new_discriminator` with seeded
+        random weights (``seed``, cfg.seed by default); Adam for
         each at its base learning rate."""
         cfg = self.cfg
         rng = torch.Generator().manual_seed(cfg.seed if seed is None
                                             else seed)
         if generator is None:
-            generator = ImpersonatorGenerator(bg_dim=4, src_dim=6, tsf_dim=6,
-                                              repeat_num=cfg.repeat_num)
+            generator = self.new_generator()
             init_weights(generator, rng)
         if discriminator is None:
-            discriminator = PatchDiscriminator(6, 64, cfg.d_layers,
-                                               cfg.norm_type)
+            discriminator = self.new_discriminator()
             init_weights(discriminator, rng)
         generator = generator.to(self.device).train()
         discriminator = discriminator.to(self.device).train()
@@ -170,6 +169,16 @@ class Trainer:
                  cfg.G_adam_b2),
             adam(discriminator.parameters(), cfg.lr_D, cfg.D_adam_b1,
                  cfg.D_adam_b2))
+
+    def new_generator(self) -> nn.Module:
+        """The full-width LWB generator (conv_dim 64)."""
+        return ImpersonatorGenerator(bg_dim=4, src_dim=6, tsf_dim=6,
+                                     repeat_num=self.cfg.repeat_num)
+
+    def new_discriminator(self) -> nn.Module:
+        """The config's PatchGAN over [image, tsf cond] (6 channels)."""
+        return PatchDiscriminator(6, 64, self.cfg.d_layers,
+                                  self.cfg.norm_type)
 
     def epoch_lr(self, epoch: int, base: float | None = None) -> float:
         """Learning rate of 0-indexed ``epoch``: ``base`` (lr_G by
@@ -205,7 +214,8 @@ def build_trainer(cfg: TrainConfig, assets: SMPLAssets | None = None,
     device = torch.device(device)
     assets = assets if assets is not None else cfg.assets()
     renderer = SMPLRenderer.create(assets, device, image_size=cfg.image_size,
-                                   map_name=cfg.map_name)
+                                   map_name=cfg.map_name,
+                                   tex_size=cfg.tex_size)
     smpl_params = smpl_ops.SMPLParams.from_assets(assets, device)
     rng = torch.Generator().manual_seed(cfg.seed + 7 if seed is None
                                         else seed)
@@ -364,6 +374,26 @@ def _apply(opt, params, grads):
     opt.step()
 
 
+def step_nets(state: TrainState, g_loss, d_loss_fn=None) -> dict:
+    """One update of both nets, in place: G's gradient of ``g_loss`` over
+    G's parameters; then, with ``d_loss_fn`` (called only now, after G's
+    graph is freed; it returns (loss, metrics)), D's gradient of its
+    loss; then Adam on G and on D. Each updated parameter keeps its
+    gradient in ``.grad``. Returns D's metrics ({} without D)."""
+    g_params = list(state.generator.parameters())
+    g_grads = _grads(g_loss, g_params)
+    d_metrics = {}
+    if d_loss_fn is not None:
+        d_params = list(state.discriminator.parameters())
+        d_loss, d_metrics = d_loss_fn()
+        d_grads = _grads(d_loss, d_params)
+    _apply(state.g_opt, g_params, g_grads)
+    if d_loss_fn is not None:
+        _apply(state.d_opt, d_params, d_grads)
+    state.step += 1
+    return d_metrics
+
+
 def _inputs(trainer, batch):
     images, smpls = batch["images"], batch["smpls"]
     src_img, tsf_img = images[:, 0], images[:, 1]
@@ -378,26 +408,15 @@ def make_update(trainer: Trainer, train_d: bool = True):
     """update(state, inputs, src_img, tsf_img) -> (state, metrics): the
     train step after :func:`body_recovery_flow` — G's gradient with D's
     parameters as they are, then (``train_d``) D's on the detached fake,
-    then Adam on G and D, in place. Each updated parameter keeps its
-    gradient in ``.grad`` until the next update replaces it."""
+    then Adam on G and D, in place (:func:`step_nets`)."""
     g_loss_fn, d_loss_fn = make_loss_fns(trainer)
 
     def update(state: TrainState, inputs, src_img, tsf_img):
-        g_params = list(state.generator.parameters())
         g_loss, (metrics, fake_tsf) = g_loss_fn(
             state.generator, state.discriminator, inputs, src_img, tsf_img)
-        g_grads = _grads(g_loss, g_params)
-        if train_d:
-            d_params = list(state.discriminator.parameters())
-            d_loss, d_metrics = d_loss_fn(state.discriminator, fake_tsf,
-                                          tsf_img,
-                                          inputs["input_G_tsf"][:, 3:])
-            d_grads = _grads(d_loss, d_params)
-            metrics.update(d_metrics)
-        _apply(state.g_opt, g_params, g_grads)
-        if train_d:
-            _apply(state.d_opt, d_params, d_grads)
-        state.step += 1
+        d_fn = (partial(d_loss_fn, state.discriminator, fake_tsf, tsf_img,
+                        inputs["input_G_tsf"][:, 3:]) if train_d else None)
+        metrics.update(step_nets(state, g_loss, d_fn))
         return state, metrics
 
     return update

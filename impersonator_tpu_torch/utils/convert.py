@@ -8,7 +8,10 @@ modules use.
 * :func:`generator_state_dict_from_jax` inverts ``convert_generator``
   (:class:`..models.generator.ImpersonatorGenerator`): conv kernels
   HWIO -> OIHW, transposed-conv kernels HWIO -> IOHW, instance-norm
-  ``scale``/``bias`` -> ``weight``/``bias``;
+  ``scale``/``bias`` -> ``weight``/``bias``. The ablation generators of
+  :mod:`..models.baseline` are built from the same stacks under the same
+  names, so it maps theirs too (``ConcatGenerator`` has no
+  ``src_model``);
 * :func:`hmr_state_dict_from_jax` inverts ``convert_hmr``
   (:class:`..models.hmr.HumanModelRecovery`): also Dense kernels
   (in, out) -> Linear weights (out, in), and BatchNorm ``scale``/
@@ -24,7 +27,11 @@ modules use.
 * :func:`discriminator_state_dict_from_jax` maps the JAX package's
   PatchGAN params onto :class:`..models.discriminator.PatchDiscriminator`
   (no reference converter exists: the reference checkpoints hold no
-  discriminator that the JAX package reads);
+  discriminator that the JAX package reads), and
+  :func:`global_local_state_dict_from_jax` /
+  :func:`multi_scale_state_dict_from_jax` each of their PatchGANs
+  (``global_model`` / ``local_model``, ``scale_{i}``) onto the same keys
+  under its module's name;
 * :func:`adam_state_dict_from_optax` turns an optax
   ``inject_hyperparams(adam)`` state into a ``torch.optim.Adam`` state
   dict over a port module's parameters.
@@ -36,9 +43,11 @@ import numpy as np
 import torch
 
 
-def _generator_keys(n_down: int, repeat: int):
+def _generator_keys(n_down: int, repeat: int,
+                    unets=("src_model", "tsf_model")):
     """(state-dict key, flax path, kind) of every generator parameter,
-    kind in {conv, convt, norm}; follows convert_generator line by line."""
+    kind in {conv, convt, norm}; follows convert_generator line by line.
+    ``unets`` names the ResUnet streams beside ``bg_model``."""
     out = []
 
     def conv(src, dst):
@@ -72,7 +81,7 @@ def _generator_keys(n_down: int, repeat: int):
         idx += 3
     conv(f"bg_model.model.{idx}", "bg_model/rgb/conv")
 
-    for p in ("src_model", "tsf_model"):
+    for p in unets:
         for i in range(n_down + 1):
             conv(f"{p}.encoders.{i}.0", f"{p}/enc_{i}/conv/conv")
             inorm(f"{p}.encoders.{i}.1", f"{p}/enc_{i}/norm")
@@ -94,14 +103,16 @@ def _generator_keys(n_down: int, repeat: int):
 
 def generator_state_dict_from_jax(tree: dict) -> dict:
     """{'params': flax generator tree} of numpy arrays -> this port's
-    ImpersonatorGenerator state dict (float32 CPU tensors)."""
+    ImpersonatorGenerator, FeatureWarpingGenerator or ConcatGenerator
+    state dict (float32 CPU tensors)."""
     params = tree["params"]
     bg = params["bg_model"]
     repeat = sum(k.startswith("res_") for k in bg)
     n_down = sum(k.startswith("down_") for k in bg)
+    unets = [p for p in ("src_model", "tsf_model") if p in params]
     perm = {"conv": (3, 2, 0, 1), "convt": (2, 3, 0, 1), "norm": None}
     sd = {}
-    for key, path, kind in _generator_keys(n_down, repeat):
+    for key, path, kind in _generator_keys(n_down, repeat, unets):
         node = params
         for part in path.split("/"):
             node = node[part]
@@ -358,6 +369,36 @@ def discriminator_state_dict_from_jax(tree: dict) -> dict:
     # BatchNormEval keeps no batch counter
     return {k: v for k, v in sd.items()
             if not k.endswith("num_batches_tracked")}
+
+
+def _sub_tree(tree: dict, name: str) -> dict:
+    """The submodule ``name``'s part of every collection of a flax tree."""
+    return {coll: v[name] for coll, v in tree.items() if name in v}
+
+
+def _prefixed(prefix: str, sd: dict) -> dict:
+    return {f"{prefix}.{k}": v for k, v in sd.items()}
+
+
+def global_local_state_dict_from_jax(tree: dict) -> dict:
+    """{'params'[, 'batch_stats']} flax GlobalLocalDiscriminator tree ->
+    this port's GlobalLocalDiscriminator state dict."""
+    return {**_prefixed("global_model", discriminator_state_dict_from_jax(
+                _sub_tree(tree, "global_model"))),
+            **_prefixed("local_model", discriminator_state_dict_from_jax(
+                _sub_tree(tree, "local_model")))}
+
+
+def multi_scale_state_dict_from_jax(tree: dict) -> dict:
+    """{'params'} flax MultiScaleDiscriminator tree -> this port's
+    MultiScaleDiscriminator state dict (``scale_models.{i}``)."""
+    n = sum(k.startswith("scale_") for k in tree["params"])
+    sd = {}
+    for i in range(n):
+        sd.update(_prefixed(f"scale_models.{i}",
+                            discriminator_state_dict_from_jax(
+                                _sub_tree(tree, f"scale_{i}"))))
+    return sd
 
 
 def adam_state_dict_from_optax(opt_state: dict, state_dict_from_jax,

@@ -145,6 +145,11 @@ PORT_MODULES = [
     "impersonator_tpu_torch.utils.precision",
     "impersonator_tpu_torch.assets",
     "impersonator_tpu_torch.config",
+    "impersonator_tpu_torch.models",
+    "impersonator_tpu_torch.models.baseline",
+    "impersonator_tpu_torch.ops.soft_raster",
+    "impersonator_tpu_torch.tasks.trainer_aug",
+    "impersonator_tpu_torch.tasks.trainer_baseline",
 ]
 
 

@@ -517,20 +517,20 @@ def test_factory_builds_each_task(name):
 
 @pytest.mark.parametrize("name", ["impersonator_trainer", "concat"])
 def test_factory_trainers_wait_for_the_training_slice(name):
-    """The single-card trainer is ported: the factory builds it from a
-    TrainConfig on the device asked for. The baselines still wait for
-    their ROADMAP.md item and raise."""
-    if name == "impersonator_trainer":
-        from impersonator_tpu_torch.config import TrainConfig
-        from impersonator_tpu_torch.tasks.trainer import Trainer
-        cfg = TrainConfig(image_size=S, repeat_num=1, d_layers=2,
-                          use_vgg=False, use_face=False)
-        tr = factory.get_by_name(name, cfg, assets=tassets.synthetic_assets(),
-                                 device="cpu")
-        assert isinstance(tr, Trainer) and tr.device == torch.device("cpu")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.get_by_name(name, _tcfg(), device="cpu")
+    """The trainers are ported: the factory builds the single-card
+    trainer and the concat baseline (a Trainer whose nets are the
+    ablation's) from a TrainConfig on the device asked for."""
+    from impersonator_tpu_torch.config import TrainConfig
+    from impersonator_tpu_torch.tasks.trainer import Trainer
+    cfg = TrainConfig(model=name, image_size=S, repeat_num=1, d_layers=2,
+                      use_vgg=False, use_face=False)
+    tr = factory.get_by_name(name, cfg, assets=tassets.synthetic_assets(),
+                             device="cpu")
+    assert isinstance(tr, Trainer) and tr.device == torch.device("cpu")
+    if name == "concat":
+        from impersonator_tpu_torch.tasks.trainer_baseline import \
+            BaselineTrainer
+        assert isinstance(tr, BaselineTrainer) and tr.mode == "concat"
 
 
 def test_detector_is_refused():

@@ -220,8 +220,8 @@ def _short_datasets(monkeypatch, n_items=4):
     """The CLI's datasets, cut to n_items (2 steps an epoch at batch 2)."""
     real = tcli.dataset_by_name
 
-    def short(name, cfg, ids_file=None):
-        ds = real(name, cfg, ids_file=ids_file)
+    def short(name, cfg, ids_file=None, **kw):
+        ds = real(name, cfg, ids_file=ids_file, **kw)
         ds.length = n_items
         return ds
     monkeypatch.setattr(tcli, "dataset_by_name", short)

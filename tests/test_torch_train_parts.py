@@ -184,8 +184,10 @@ def test_body_recovery_flow_matches_jax(renderers, bg_both):
 
 def test_synthetic_dataset_matches_jax():
     """Every item bit for bit, with and without a background, for two
-    seeds; the registry's synthetic entries, and the decoder-bound ones
-    raising with their ROADMAP item."""
+    seeds; the registry's synthetic entries, and the readers of data on
+    disk doing what JAX's do where the configured folders do not exist:
+    iPER raises for its split file, DeepFashion and Places2 are empty
+    (tests/test_torch_datasets.py reads real trees)."""
     for seed in (0, 3):
         for with_bg in (False, True):
             jd = JSynth(32, length=5, seed=seed, with_bg=with_bg)
@@ -201,9 +203,13 @@ def test_synthetic_dataset_matches_jax():
     cfg = TCfg(image_size=16)
     assert tdata.dataset_by_name("synthetic_bg", cfg)[0]["bg"].shape == \
         (16, 16, 3)
-    for name in ("iPER", "fashion", "place"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tdata.dataset_by_name(name, cfg)
+    cfg = TCfg(image_size=16, data_dir="/nonexistent/iPER",
+               fashion_dir="/nonexistent/fashion",
+               place_dir="/nonexistent/places")
+    with pytest.raises(FileNotFoundError, match="train.txt"):
+        tdata.dataset_by_name("iPER", cfg, device="cpu")
+    for name in ("fashion", "place"):
+        assert len(tdata.dataset_by_name(name, cfg, device="cpu")) == 0
     with pytest.raises(ValueError):
         tdata.dataset_by_name("nope", cfg)
 

@@ -14,6 +14,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from impersonator_tpu import assets as jassets
@@ -158,3 +159,53 @@ def l2_gaps(a: dict, b: dict):
     ca = torch.cat([a[k].flatten() for k in keys])
     cb = torch.cat([b[k].flatten() for k in keys])
     return per, float((ca - cb).norm() / cb.norm())
+
+
+def perturbed(tree, seed: int, scale: float = 0.05):
+    """A flax param tree with N(0, scale) noise added to every array, so
+    that norm scales, biases and kernels all leave their init."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda v: (np.asarray(v) + rng.normal(0, scale, np.shape(v))
+                   ).astype(np.float32), np_tree(tree))
+
+
+def capture_loss_fns(step_fn, *args):
+    """The functions a JAX train step hands to jax.value_and_grad (its G
+    and D losses), caught while the step is traced abstractly on
+    ``args``."""
+    caught = []
+    real = jax.value_and_grad
+
+    def spy(fn, *a, **k):
+        caught.append(fn)
+        return real(fn, *a, **k)
+
+    jax.value_and_grad = spy
+    try:
+        jax.eval_shape(step_fn, *args)
+    finally:
+        jax.value_and_grad = real
+    return caught
+
+
+def grads_by_name(module, loss) -> dict:
+    """{parameter name: d loss / d parameter}, zeros where it does not
+    reach."""
+    names = [n for n, _ in module.named_parameters()]
+    return dict(zip(names, torch.autograd.grad(
+        loss, list(module.parameters()), materialize_grads=True)))
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Each test of a module that imports this runs torch on one CPU
+    thread (restored after it): the parity suites run in several worker
+    processes at once, where torch's per-process thread pools would
+    oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
