@@ -162,6 +162,25 @@ Phases, each failing the run (exit 1) on any error:
    cli.train.main --model impersonator_trainer_aug and --model
    feature_warping for one epoch of 4 steps each (launches 4 / 4 and
    8 / 0);
+14. the evaluation suite (metrics/, cli/evaluate.py), the metric nets in
+   float32 with TF32 off: LPIPS (alex, the repository's v0.1 lin heads,
+   a seeded backbone) on 64 pairs at 256², batch 16, pairs/s, card vs
+   CPU within EVAL_NET_RTOL; InceptionV3 (He-initialised, seeded) pool3
+   and probabilities of 64 images resized to 299², images/s, pool3 card
+   vs CPU within EVAL_NET_RTOL and the FID of 32 against 32 images from
+   each device's features within EVAL_FID_RTOL; InceptionResnetV1,
+   SENet50, Sphere20a, OSNet and PCB embeddings of the 64 images,
+   images/s, card vs CPU within EVAL_NET_RTOL; MTCNN with the
+   repository's weights on 16 frames of 256² with a drawn face
+   (scenes.face_image), frames/s, the same boxes on both devices within
+   EVAL_BOX_PX; cli.evaluate.main on an iPER tree of 2 videos × 16 JPEG
+   frames of 256² from the card's encoder with θ pickles (self- and
+   cross-imitation, bf16, LPIPS on the repository's heads): wall
+   seconds, frames/s, launches exactly rows 2 / flow 8, results.txt and
+   results.json; then the same command in float32 (TF32 off) on one
+   video at --max_frames 4, on the card (rows 1 / flow 2) and on the CPU
+   (reading the frames through the card's decoder: the card's host has
+   no libjpeg), results.json within EVAL_BOUNDS;
 9. float32 with TF32 off, card against CPU on the same weights:
    swap_core on the card from the CPU's two states (preds within 1e-2),
    the flow kernel on the CPU's rotated meshes (fim equal to the twin's,
@@ -175,9 +194,10 @@ Phases, each failing the run (exit 1) on any error:
    wall time, the largest kernels and the z-buffer kernels' mean device
    time per launch (full tables in chiprun_out/profile_*.txt).
 
-Phases run in the order 1-4b, 7, 8, 8b, 10, 11, 12, 13, 9, 5, 5b, 6.
+Phases run in the order 1-4b, 7, 8, 8b, 10, 11, 12, 13, 14, 9, 5, 5b, 6.
 Each path (3c, 4, 4b, 7, 8, 8b, 10, 11's bf16, float32 and CLI runs,
-12's streamed requests and /imitate, 13's trainers and CLI runs) runs
+12's streamed requests and /imitate, 13's trainers and CLI runs, 14's
+cli.evaluate runs) runs
 with every launch count set to 0 just before it and read just after,
 and fails if a kernel of the path never launched; the record's
 launches_by_path holds each path's counts ("train", "train_fp32",
@@ -185,7 +205,8 @@ launches_by_path holds each path's counts ("train", "train_fp32",
 "serve_imitate" for phase 12; "train_aug", "train_aug_fp32",
 "train_aug_disk", "train_concat", "train_texture_warping",
 "train_feature_warping", "train_aug_cli" and
-"train_feature_warping_cli" for phase 13). The seconds of each phase
+"train_feature_warping_cli" for phase 13; "evaluate_cli" and
+"evaluate_cli_fp32" for phase 14). The seconds of each phase
 and the whole script's wall time are printed before the record. The line before the
 last is nvidia-smi's name and power limit, the one before it the kernels' JSON record (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its float operations
@@ -257,6 +278,14 @@ IO_FRAMES, IO_BATCH = 64, 16     # phase 12's frames on disk and batch
 # (elementwise float32, sums of logs over 12,880 faces in another order)
 # and its camera gradient, relative L2
 TEX_TOL, SIL_TOL, SIL_GRAD_RTOL = 1e-5, 1e-5, 1e-3
+# phase 14: the metric nets card vs CPU (float32 without TF32; max |d| over
+# the CPU output's max |x|), FID from the two devices' features (relative),
+# MTCNN box corners (px); cli.evaluate card vs CPU in float32 without TF32
+# on results.json: tests/test_torch_evaluate.py's BOUNDS
+EVAL_NET_RTOL, EVAL_FID_RTOL, EVAL_BOX_PX = 1e-4, 1e-3, 0.5
+EVAL_BOUNDS = {"ssim": 1e-5, "psnr": 1e-4, "lps": 1e-5}
+EVAL_VIDEOS, EVAL_FRAMES, EVAL_IMAGES = 2, 16, 64
+EVAL_MTCNN = (16, 256)          # MTCNN's frames and their size
 
 
 def lap(name):
@@ -2128,6 +2157,348 @@ def remaining_trainers_phase(cr, smpl_ops, assets, dev, tag):
     return by_path
 
 
+# -- phase 14: the evaluation suite ------------------------------------------
+
+def items_per_s(fn, n_items, reps=3):
+    """n_items / the median host seconds of fn() over reps calls, each
+    ending in a synchronise, after one warm-up call."""
+    import statistics
+    times, _ = requests(fn, reps + 1)
+    return n_items / statistics.median(times[1:])
+
+
+def rel_gap(card, cpu):
+    """max |card - cpu| / max |cpu| (card's tensor brought to the host)."""
+    import torch
+    card = torch.as_tensor(card).detach().float().cpu()
+    cpu = torch.as_tensor(cpu).detach().float()
+    return float((card - cpu).abs().max() / cpu.abs().max())
+
+
+def batched(fn, x, batch=16):
+    """fn over x in batches of ``batch``; tuple outputs concatenated."""
+    import torch
+    outs = [fn(x[i:i + batch]) for i in range(0, x.shape[0], batch)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
+
+
+def seeded_net(cls, seed, init=None):
+    """cls() with PyTorch's default initialisation drawn on the CPU from
+    seed (or ``init(net, generator)``), in eval mode."""
+    import torch
+    torch.manual_seed(seed)
+    net = cls()
+    if init is not None:
+        init(net, torch.Generator().manual_seed(seed))
+    return net.eval().requires_grad_(False)
+
+
+def he_init(net, generator):
+    """Conv and dense weights N(0, 2 / fan_in), biases 0: activations keep
+    their scale through ReLU stacks, so a deep random net's features still
+    tell images apart (PyTorch's default init shrinks them layer by
+    layer, and a random InceptionV3's pool3 features come out nearly
+    equal for all images)."""
+    import torch
+    for m in net.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                           * (2.0 / m.weight[0].numel()) ** 0.5)
+            if m.bias is not None:
+                m.bias.zero_()
+
+
+def metric_nets_checks(dev, tag):
+    """Phase 14's nets at full size, float32 without TF32: LPIPS on 64
+    pairs at 256² and each embed net on 64 images, batch 16 (items/s);
+    each against the CPU on the same weights and inputs."""
+    import numpy as np
+    import torch
+    from impersonator_tpu_torch.cli import evaluate as ev
+    from impersonator_tpu_torch.metrics import reid, unpaired, zoo
+    from impersonator_tpu_torch.models.facenet import (SENet50, Sphere20a,
+                                                       init_facenet)
+    cpu = torch.device("cpu")
+    frames = smooth_frames(2 * EVAL_IMAGES, GEOM["s"], 31)
+    x = torch.from_numpy(frames.astype(np.float32) / 127.5 - 1.0)
+    a_c, b_c = x[:EVAL_IMAGES], x[EVAL_IMAGES:]
+    a_g, b_g = a_c.to(dev), b_c.to(dev)
+
+    t0 = time.perf_counter()
+    lp_g = ev.lpips_apply_fn(ev.load_lpips(ev.REAL_LPIPS_LIN, dev))
+    lp_c = ev.lpips_apply_fn(ev.load_lpips(ev.REAL_LPIPS_LIN, cpu))
+    pairs_s = items_per_s(lambda: [lp_g(a_g[i:i + 16], b_g[i:i + 16])
+                                   for i in range(0, EVAL_IMAGES, 16)],
+                          EVAL_IMAGES)
+    lp_rel = rel_gap(lp_g(a_g[:16], b_g[:16]), lp_c(a_c[:16], b_c[:16]))
+    print(f"LPIPS (alex, the repository's v0.1 lin heads, a seeded "
+          f"backbone), {EVAL_IMAGES} pairs at {GEOM['s']}^2, batch 16: "
+          f"{pairs_s:.1f} pairs/s; card vs CPU on 16 pairs {lp_rel:.3e} "
+          f"(bound {EVAL_NET_RTOL}); {time.perf_counter() - t0:.1f} s "
+          f"{tag}", flush=True)
+    check(lp_rel <= EVAL_NET_RTOL, f"LPIPS card vs CPU {lp_rel}")
+
+    t0 = time.perf_counter()
+    inc_c = seeded_net(zoo.InceptionV3, 41, torch.no_grad()(he_init))
+    inc_fn_g = unpaired.inception_embed_fn(copy.deepcopy(inc_c).to(dev))
+    inc_fn_c = unpaired.inception_embed_fn(inc_c)
+    inc_s = items_per_s(lambda: batched(inc_fn_g, a_g), EVAL_IMAGES)
+    pool_g, probs_g = batched(inc_fn_g, a_g)
+    pool_c, probs_c = batched(inc_fn_c, a_c)
+    pool_rel, probs_rel = rel_gap(pool_g, pool_c), rel_gap(probs_g, probs_c)
+    half = EVAL_IMAGES // 2
+
+    def fid(pool):
+        pool = pool.detach().float().cpu().numpy()
+        m1, s1 = unpaired.gaussian_stats(pool[:half])
+        m2, s2 = unpaired.gaussian_stats(pool[half:])
+        return unpaired.frechet_distance(m1, s1, m2, s2)
+
+    fid_g, fid_c = fid(pool_g), fid(pool_c)
+    fid_rel = abs(fid_g - fid_c) / abs(fid_c)
+    is_g = unpaired.inception_score(probs_g.cpu().numpy())
+    print(f"InceptionV3 (seeded), {EVAL_IMAGES} images resized to 299^2, "
+          f"batch 16: {inc_s:.1f} images/s; card vs CPU: pool3 "
+          f"{pool_rel:.3e}, probs {probs_rel:.3e} (bound {EVAL_NET_RTOL}); "
+          f"FID of {half} vs {half} images card {fid_g:.6f}, CPU "
+          f"{fid_c:.6f}, relative gap {fid_rel:.3e} (bound {EVAL_FID_RTOL});"
+          f" IS {is_g:.6f}; {time.perf_counter() - t0:.1f} s {tag}",
+          flush=True)
+    check(pool_rel <= EVAL_NET_RTOL, f"InceptionV3 pool3 card vs CPU "
+          f"{pool_rel}")
+    check(fid_rel <= EVAL_FID_RTOL, f"FID card vs CPU {fid_rel}")
+
+    nets = {
+        "InceptionResnetV1": (unpaired.facenet_ir_embed_fn,
+                              seeded_net(zoo.InceptionResnetV1, 42)),
+        "SENet50": (unpaired.senet_face_embed_fn,
+                    seeded_net(SENet50, 43, init_facenet)),
+        "Sphere20a": (unpaired.sphere_face_embed_fn,
+                      seeded_net(Sphere20a, 44, init_facenet)),
+        "OSNet": (reid.osnet_reid_embed_fn, seeded_net(reid.OSNet, 45)),
+        "PCB": (reid.pcb_reid_embed_fn, seeded_net(reid.PCBReid, 46)),
+    }
+    rates = {}
+    for name, (make_fn, net_c) in nets.items():
+        t0 = time.perf_counter()
+        fn_g = make_fn(copy.deepcopy(net_c).to(dev))
+        rates[name] = items_per_s(lambda: batched(fn_g, a_g), EVAL_IMAGES)
+        gap = rel_gap(fn_g(a_g[:4]), make_fn(net_c)(a_c[:4]))
+        print(f"{name} (seeded) embeddings of {EVAL_IMAGES} images, batch "
+              f"16: {rates[name]:.1f} images/s; card vs CPU on 4 images "
+              f"{gap:.3e} (bound {EVAL_NET_RTOL}); "
+              f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+        check(gap <= EVAL_NET_RTOL, f"{name} card vs CPU {gap}")
+    return {"lpips_pairs_s": pairs_s, "inception_images_s": inc_s, **rates}
+
+
+def mtcnn_checks(dev, tag):
+    """MTCNN with the repository's weights on EVAL_MTCNN frames (16 of
+    256²), each with a drawn face (scenes.face_image): frames/s of detect
+    on the card, and the CPU's boxes: the same count per frame, corners
+    within EVAL_BOX_PX."""
+    import numpy as np
+    from impersonator_tpu_torch.cli import evaluate as ev
+    from impersonator_tpu_torch.metrics.mtcnn import load_mtcnn
+    from impersonator_tpu_torch.scenes import face_image
+    rng = np.random.default_rng(47)
+    n, s = EVAL_MTCNN
+    imgs = np.stack([face_image(s, s, *rng.uniform(0.375 * s, 0.625 * s, 2),
+                                rng.uniform(0.12 * s, 0.21 * s), seed=i)
+                     for i in range(n)])
+    t0 = time.perf_counter()
+    det_g = load_mtcnn(ev.REAL_MTCNN, device=dev)
+    det_c = load_mtcnn(ev.REAL_MTCNN, device="cpu")
+    fps = items_per_s(lambda: det_g.detect(imgs), len(imgs))
+    boxes_g, _ = det_g.detect(imgs)
+    boxes_c, _ = det_c.detect(imgs)
+    counts = [len(b) for b in boxes_c]
+    check([len(b) for b in boxes_g] == counts,
+          f"MTCNN box counts card {[len(b) for b in boxes_g]} vs CPU "
+          f"{counts}")
+    check(sum(counts) >= len(imgs), f"MTCNN found {counts} faces")
+    gap = max(float(np.abs(bg[np.argsort(bg[:, 0]), :4]
+                           - bc[np.argsort(bc[:, 0]), :4]).max())
+              for bg, bc in zip(boxes_g, boxes_c) if len(bc))
+    print(f"MTCNN (the repository's P / R / O-net weights) on {n} frames "
+          f"of {s}^2: {fps:.1f} frames/s; {sum(counts)} boxes on both devices "
+          f"({counts}), corners card vs CPU within {gap:.3e} px (bound "
+          f"{EVAL_BOX_PX}); {time.perf_counter() - t0:.1f} s {tag}",
+          flush=True)
+    check(gap <= EVAL_BOX_PX, f"MTCNN boxes card vs CPU {gap}")
+    return fps
+
+
+def write_eval_tree(root, native, dev):
+    """An iPER tree under root: EVAL_VIDEOS videos of EVAL_FRAMES seeded
+    smooth JPEG frames at 256² from the card's encoder
+    (images_HD/{vid}/%08d.jpg), θs of the JAX bench's train point in
+    smpls/{vid}/pose_shape.pkl, and a protocol in the standard schema:
+    self-imitation over every frame, cross-imitation of the next video.
+    Returns the protocol file."""
+    import os
+    import pickle
+    import numpy as np
+    rng = np.random.default_rng(48)
+    frames = smooth_frames(EVAL_VIDEOS * EVAL_FRAMES, GEOM["s"], 32)
+    vids = [f"{v:03d}/1/1" for v in range(EVAL_VIDEOS)]
+    names = [f"{i:08d}.jpg" for i in range(EVAL_FRAMES)]
+    for v, vid in enumerate(vids):
+        d = os.path.join(root, "images_HD", vid)
+        os.makedirs(d)
+        for i, name in enumerate(names):
+            with open(os.path.join(d, name), "wb") as f:
+                f.write(native.encode_jpeg(frames[v * EVAL_FRAMES + i],
+                                           device=dev))
+        t = train_batch(8, EVAL_FRAMES, int(rng.integers(1 << 30)))
+        t = t["smpls"][:, 0]
+        os.makedirs(os.path.join(root, "smpls", vid))
+        with open(os.path.join(root, "smpls", vid, "pose_shape.pkl"),
+                  "wb") as f:
+            pickle.dump({"cams": t[:, :3], "pose": t[:, 3:75],
+                         "shape": t[:, 75:]}, f)
+    last = EVAL_FRAMES - 1
+    proto = {"val": {vid: {
+        "source": [names[0]], "view angle": [0], "s_n": {"1": [names[0]]},
+        "self_imitation": {"target": vid, "range": [0, last]},
+        "cross_imitation": {"target": vids[(v + 1) % len(vids)],
+                            "range": [0, last]},
+        "flag": [0, last]} for v, vid in enumerate(vids)}}
+    path = os.path.join(root, "iPER_protocol.json")
+    with open(path, "w") as f:
+        json.dump(proto, f)
+    return path
+
+
+@contextlib.contextmanager
+def card_decoder_for_cpu(native):
+    """The card's host has no libjpeg, so the codec's CPU build cannot be
+    made there. Inside the block a request for the "cpu" codec gets the
+    card's build (nvJPEG decodes into host memory): a CPU run reads the
+    same pixels as the card run, and their comparison holds the compute
+    alone."""
+    import torch
+    load = native.load
+
+    def card_load(device="cuda"):
+        return load("cuda" if torch.device(device).type == "cpu" else device)
+
+    native.load = card_load
+    try:
+        yield
+    finally:
+        native.load = load
+
+
+def evaluate_cli_checks(cr, native, dev, tag):
+    """cli.evaluate.main on the card on write_eval_tree's tree (256²,
+    conv_dim 64, 6 res blocks, bf16, LPIPS on the repository's lin heads):
+    wall seconds, evaluated frames/s, exact launch counts; then the same
+    command in float32 with TF32 off, one video and --max_frames 4 on the
+    card and on the CPU (card_decoder_for_cpu), results.json within
+    EVAL_BOUNDS.
+    Returns ({path: launch counts}, wall seconds, frames evaluated)."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from impersonator_tpu_torch.cli import evaluate as ev
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proto = write_eval_tree(tmp, native, dev)
+        print(f"evaluation tree: {EVAL_VIDEOS * EVAL_FRAMES} JPEGs of "
+              f"{GEOM['s']}^2 from the card's encoder and their θs "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        base = ["--data_dir", tmp, "--protocol_file", proto,
+                "--lpips_path", ev.REAL_LPIPS_LIN, "--image_size",
+                str(GEOM["s"]), "--checkpoints_dir",
+                os.path.join(tmp, "ckpt"), "--name", "eval"]
+        out = os.path.join(tmp, "out")
+        reset_counts(cr)
+        t0 = time.perf_counter()
+        res = ev.main(base + ["--output_dir", out, "--device", dev.type])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(cr)
+        n = res["num_si_frames"] + res["num_ci_frames"]
+        # per video: personalize (1 rows), self- and cross-imitation in
+        # batches of 8 (1 flow each)
+        per_clip = -(-EVAL_FRAMES // 8)
+        check(n == 2 * EVAL_VIDEOS * EVAL_FRAMES, f"evaluated frames {n}")
+        check(launches["zbuffer_bucket_rows"] == EVAL_VIDEOS and
+              launches["zbuffer_bucket_flow"] == 2 * per_clip * EVAL_VIDEOS,
+              f"cli.evaluate launches {launches}")
+        on_disk = json.loads(Path(out, "results.json").read_text())
+        check(on_disk["self_imitation"] == res["self_imitation"] and
+              list(res["self_imitation"]) == ["ssim", "psnr", "lps"] and
+              all(np.isfinite(v) for v in res["self_imitation"].values()),
+              f"results {res['self_imitation']}")
+        check("Self-imitation Results" in Path(out, "results.txt")
+              .read_text(), "results.txt")
+        print(f"cli.evaluate (bf16, {EVAL_VIDEOS} videos x {EVAL_FRAMES} "
+              f"frames, self- and cross-imitation): {wall:.2f} s with "
+              f"set-up, {n} frames evaluated, {n / wall:.1f} frames/s, "
+              f"{wall / EVAL_VIDEOS:.2f} s a video; self-imitation "
+              f"{ {k: round(v, 5) for k, v in res['self_imitation'].items()} }"
+              f"; launches {launches} {tag}", flush=True)
+
+        cmp = base + ["--compute_dtype", "float32", "--max_videos", "1",
+                      "--max_frames", "4"]
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        reset_counts(cr)
+        res_g = ev.main(cmp + ["--output_dir", os.path.join(tmp, "g"),
+                               "--device", dev.type])
+        launches_32 = read_counts(cr)
+        t0 = time.perf_counter()
+        with card_decoder_for_cpu(native):
+            res_c = ev.main(cmp + ["--output_dir", os.path.join(tmp, "c"),
+                                   "--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+        check(launches_32["zbuffer_bucket_rows"] == 1 and
+              launches_32["zbuffer_bucket_flow"] == 2,
+              f"float32 cli.evaluate launches {launches_32}")
+        check(sorted(res_g) == sorted(res_c) and
+              list(res_g["per_video"]) == list(res_c["per_video"]),
+              "card and CPU results differ in their keys")
+        pairs = [(res_g["self_imitation"], res_c["self_imitation"])] + [
+            (res_g["per_video"][v], res_c["per_video"][v])
+            for v in res_c["per_video"]]
+        gaps = {}
+        for got, want in pairs:
+            check(list(got) == list(want), f"metric keys {list(got)}")
+            for k, v in want.items():
+                gaps[k] = max(gaps.get(k, 0.0), abs(got[k] - v))
+        print(f"cli.evaluate float32 (TF32 off), one video, --max_frames "
+              f"4, card vs CPU (CPU side {cpu_s:.1f} s): self-imitation card "
+              f"{ {k: round(v, 6) for k, v in res_g['self_imitation'].items()} }"
+              f", largest gaps {gaps} (bounds {EVAL_BOUNDS}); launches "
+              f"{launches_32} {tag}", flush=True)
+        for k, gap in gaps.items():
+            check(gap <= EVAL_BOUNDS[k], f"cli.evaluate {k} card vs CPU "
+                  f"{gap}")
+    return ({"evaluate_cli": launches, "evaluate_cli_fp32": launches_32},
+            wall, n)
+
+
+def evaluation_phase(cr, native, dev, tag):
+    """Phase 14 (module docstring); returns {path: launch counts}."""
+    t_phase = time.perf_counter()
+    rates = metric_nets_checks(dev, tag)
+    rates["mtcnn_frames_s"] = mtcnn_checks(dev, tag)
+    by_path, wall, n = evaluate_cli_checks(cr, native, dev, tag)
+    print(f"evaluation phase: {time.perf_counter() - t_phase:.1f} s of "
+          f"wall time; items/s { {k: round(v, 1) for k, v in rates.items()} }"
+          f", cli.evaluate {wall:.2f} s for {n} frames {tag}", flush=True)
+    return by_path
+
+
 def main():
     import numpy as np
     import torch
@@ -2561,6 +2932,10 @@ def main():
     trainer_launches = remaining_trainers_phase(cr, smpl_ops, assets, dev,
                                                 tag)
 
+    # -- phase 14: the evaluation suite ---------------------------------------
+    lap("14")
+    eval_launches = evaluation_phase(cr, native, dev, tag)
+
     # -- phase 9: fp32 (TF32 off) card vs CPU: swap, view, DeepFill ----------
     lap("9")
     torch.backends.cudnn.allow_tf32 = False
@@ -2758,7 +3133,7 @@ def main():
                "deepfill_front_warp": launches_bg,
                "post_tune_imitator": pt_launches,
                "post_tune_swapper": pt_sw_launches, **train_launches,
-               **io_launches, **trainer_launches}
+               **io_launches, **trainer_launches, **eval_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"impersonator_tpu_torch/csrc/{src}",

@@ -29,15 +29,17 @@ from torch import nn
 
 
 class PReLU(nn.Module):
-    """Per-channel PReLU, slope 0.25 at init: ``where(x >= 0, x, a · x)``
-    (the key ``weight``, as torch's nn.PReLU)."""
+    """Per-channel PReLU over dim 1 (NCHW maps or (B, C) features), slope
+    0.25 at init: ``where(x >= 0, x, a · x)`` (the key ``weight``, as
+    torch's nn.PReLU)."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.weight = nn.Parameter(torch.full((channels,), 0.25))
 
     def forward(self, x):
-        return torch.where(x >= 0, x, self.weight[:, None, None] * x)
+        a = self.weight.reshape(-1, *([1] * (x.ndim - 2)))
+        return torch.where(x >= 0, x, a * x)
 
 
 # (stage conv, [(first, second) conv of each residual pair]) of Sphere20a

@@ -1,6 +1,6 @@
 """Bilinear warping and resizing with the reference's torch-1.2 semantics
 (``align_corners=True``, zero padding), torch port of
-``impersonator_tpu/ops/sampler.py:18-158, 200-207``.
+``impersonator_tpu/ops/sampler.py:18-207``.
 
 ``grid_sample_patched`` (:69-131) has no port of its own: it is a TPU
 row-gather layout of the same arithmetic as ``grid_sample``, and
@@ -58,32 +58,57 @@ def grid_sample(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     return grid_sample_nchw(x.permute(0, 3, 1, 2), grid).permute(0, 2, 3, 1)
 
 
+def _interp_axis(arr: torch.Tensor, coords: torch.Tensor,
+                 axis: int) -> torch.Tensor:
+    """Linear interpolation of ``arr`` along ``axis`` at float32 source
+    coordinates already inside [0, n - 1]: ``a * (1 - t) + b * t`` in
+    arr's dtype (the JAX package's order)."""
+    lo = coords.floor().long()
+    hi = (lo + 1).clamp(max=arr.shape[axis] - 1)
+    shape = [1] * arr.ndim
+    shape[axis] = coords.shape[0]
+    t = (coords - lo).reshape(shape).to(arr.dtype)
+    a = arr.index_select(axis, lo)
+    b = arr.index_select(axis, hi)
+    return a * (1 - t) + b * t
+
+
 def resize_bilinear_align(x: torch.Tensor, out_h: int,
                           out_w: int) -> torch.Tensor:
     """Bilinear resize with align_corners=True, NHWC: (B, H, W, C) ->
-    (B, out_h, out_w, C), rows first, then columns, each as
-    ``a * (1 - t) + b * t`` in x's dtype (the JAX package's order)."""
+    (B, out_h, out_w, C), rows first, then columns."""
     h, w = x.shape[1], x.shape[2]
     if (h, w) == (out_h, out_w):
         return x
 
-    def interp(arr, n_in, n_out, axis):
+    def coords(n_in, n_out):
         if n_out == 1:
-            coords = torch.zeros(1, dtype=torch.float32, device=arr.device)
-        else:
-            coords = torch.arange(n_out, dtype=torch.float32,
-                                  device=arr.device) * ((n_in - 1)
-                                                        / (n_out - 1))
-        lo = coords.floor().long()
-        hi = (lo + 1).clamp(max=n_in - 1)
-        shape = [1] * arr.ndim
-        shape[axis] = n_out
-        t = (coords - lo).reshape(shape).to(arr.dtype)
-        a = arr.index_select(axis, lo)
-        b = arr.index_select(axis, hi)
-        return a * (1 - t) + b * t
+            return torch.zeros(1, dtype=torch.float32, device=x.device)
+        return torch.arange(n_out, dtype=torch.float32,
+                            device=x.device) * ((n_in - 1) / (n_out - 1))
 
-    return interp(interp(x, h, out_h, 1), w, out_w, 2)
+    return _interp_axis(_interp_axis(x, coords(h, out_h), 1),
+                        coords(w, out_w), 2)
+
+
+def resize_bilinear_torch(x: torch.Tensor, out_h: int,
+                          out_w: int) -> torch.Tensor:
+    """Bilinear resize with align_corners=False (half-pixel centres, edge
+    samples clamped, no antialiasing), NHWC: (B, H, W, C) -> (B, out_h,
+    out_w, C), rows first, then columns (``ops/sampler.py:168`` of the
+    JAX package; the metric nets' preprocess at 299², 160², 224² and
+    112×96)."""
+    h, w = x.shape[1], x.shape[2]
+    if (h, w) == (out_h, out_w):
+        return x
+
+    def coords(n_in, n_out):
+        src = (torch.arange(n_out, dtype=torch.float32, device=x.device)
+               + 0.5) * (n_in / n_out) - 0.5
+        return src.clamp(0.0, n_in - 1)
+
+    return _interp_axis(_interp_axis(x, coords(h, out_h), 1),
+                        coords(w, out_w), 2)
 
 
 def resize_flow(t: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

@@ -34,13 +34,26 @@ modules use.
   under its module's name;
 * :func:`adam_state_dict_from_optax` turns an optax
   ``inject_hyperparams(adam)`` state into a ``torch.optim.Adam`` state
-  dict over a port module's parameters.
+  dict over a port module's parameters;
+* the metric nets (:mod:`..metrics`): :func:`lpips_state_dict_from_jax`
+  (lin heads, with or without an alex / vgg / squeeze backbone; inverts
+  ``convert_lpips``), :func:`inception_state_dict_from_jax`,
+  :func:`facenet_ir_state_dict_from_jax`, :func:`osnet_state_dict_from_jax`,
+  :func:`pcb_state_dict_from_jax` and :func:`mtcnn_state_dicts_from_jax`
+  (invert ``convert_inception``, ``convert_facenet_ir``,
+  ``convert_osnet``, ``convert_pcb`` and ``convert_mtcnn``), and
+  :func:`darknet_params_from_jax` (the JAX package's folded darknet
+  kernels, HWIO -> OIHW). These walk the port module's own state dict,
+  map each key to its flax path, and fail on a tree leaf left over.
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
+from torch import nn
 
 
 def _generator_keys(n_down: int, repeat: int,
@@ -429,3 +442,196 @@ def adam_state_dict_from_optax(opt_state: dict, state_dict_from_jax,
     sd["param_groups"][0]["lr"] = float(np.asarray(
         opt_state["hyperparams"]["learning_rate"]))
     return sd
+
+
+# --------------------------------------------------------------------------
+# metric nets: keys from the port module, paths from a rename
+# --------------------------------------------------------------------------
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _leaf_path(mod: nn.Module, leaf: str, path: str):
+    """(collection, flax path, kind) of one tensor of a port module whose
+    flax counterpart sits at ``path``."""
+    from impersonator_tpu_torch.models.facenet import PReLU
+    if isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if leaf == "bias":
+            return "params", f"{path}/bias", "vec"
+        kind = "conv" if isinstance(mod, nn.Conv2d) else "dense"
+        return "params", f"{path}/kernel", kind
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stats", f"{path}/{leaf[len('running_'):]}", "vec"
+    if isinstance(mod, PReLU):
+        return "params", f"{path}/alpha", "vec"
+    # BatchNorm / InstanceNorm affine
+    return "params", f"{path}/{'scale' if leaf == 'weight' else 'bias'}", \
+        "vec"
+
+
+_PERMS = {"conv": (3, 2, 0, 1), "dense": (1, 0), "vec": None}
+
+
+def _from_module(module: nn.Module, tree: dict, rename) -> dict:
+    """The state dict of ``module`` (any device, ``meta`` included) filled
+    from the flax ``tree`` ({'params'[, 'batch_stats']}): each key's
+    owner module path goes through ``rename`` to its flax path. Raises on
+    a missing leaf, a shape mismatch or a leaf of the tree left over."""
+    flat = {coll: _flat(tree.get(coll, {}))
+            for coll in ("params", "batch_stats")}
+    used = {coll: set() for coll in flat}
+    sd = {}
+    for key, ref in module.state_dict().items():
+        owner, _, leaf = key.rpartition(".")
+        if leaf == "num_batches_tracked":
+            sd[key] = torch.tensor(0)
+            continue
+        coll, path, kind = _leaf_path(module.get_submodule(owner), leaf,
+                                      rename(owner))
+        arr = np.asarray(flat[coll][path], np.float32)
+        if _PERMS[kind] is not None:
+            arr = arr.transpose(_PERMS[kind])
+        arr = arr.reshape(ref.shape) if arr.size == ref.numel() else arr
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: {arr.shape} from {path}, the module "
+                             f"holds {tuple(ref.shape)}")
+        sd[key] = torch.tensor(arr)
+        used[coll].add(path)
+    left = [f"{c}/{p}" for c in flat for p in flat[c] if p not in used[c]]
+    if left:
+        raise ValueError(f"tree leaves with no key in the module: {left[:8]}")
+    return sd
+
+
+def _template(cls, *args):
+    """A module of ``cls`` with no storage, for its keys and shapes."""
+    with torch.device("meta"):
+        return cls(*args)
+
+
+_ALEX_IDS = (0, 3, 6, 8, 10)
+
+
+def _lpips_backbone_path(net: str, owner: str) -> str:
+    """``net.features.{i}[.{sub}]`` -> the flax path under ``net``."""
+    parts = owner.split(".")
+    ti = int(parts[2])
+    if net == "alex":
+        return f"alex/conv{_ALEX_IDS.index(ti)}/conv"
+    if net == "vgg":
+        return f"vgg/conv{ti}/conv"
+    if ti == 0:
+        return "squeeze/conv0/conv"
+    return f"squeeze/fire{ti}/{parts[3]}/conv"
+
+
+def lpips_state_dict_from_jax(tree: dict, net: str = "alex") -> dict:
+    """{'params': {'lin{i}': (C,)[, net: backbone]}} flax LPIPS tree ->
+    this port's ``metrics.zoo.LPIPS(net)`` state dict: ``lin{i}.model.1.
+    weight`` (1, C, 1, 1) and, when the tree holds the backbone, its
+    ``net.features.*`` keys (a lin-heads-only tree gives the lin keys
+    alone)."""
+    from impersonator_tpu_torch.metrics.zoo import LPIPS
+    template = _template(LPIPS, net)
+    params = dict(tree["params"])
+    sd = {}
+    for i in range(template.n_lin):
+        w = np.asarray(params.pop(f"lin{i}"), np.float32)
+        sd[f"lin{i}.model.1.weight"] = torch.tensor(w.reshape(1, -1, 1, 1))
+    backbone = params.pop(net, None)
+    if params:
+        raise ValueError(f"LPIPS tree leaves with no key: {sorted(params)}")
+    if backbone is not None:
+        sd.update(_prefixed("net", _from_module(
+            template.net, {"params": {net: backbone}},
+            lambda owner: _lpips_backbone_path(net, "net." + owner))))
+    return sd
+
+
+def inception_state_dict_from_jax(tree: dict) -> dict:
+    """{'params', 'batch_stats'} flax InceptionV3 tree -> this port's
+    ``metrics.zoo.InceptionV3`` state dict."""
+    from impersonator_tpu_torch.metrics.zoo import InceptionV3
+    return _from_module(_template(InceptionV3), tree,
+                        lambda o: o.replace(".", "/"))
+
+
+def facenet_ir_state_dict_from_jax(tree: dict) -> dict:
+    """{'params', 'batch_stats'} flax InceptionResnetV1 tree -> this
+    port's ``metrics.zoo.InceptionResnetV1`` state dict (``repeat_1.{i}``
+    is flax's ``repeat_1_{i}``, ``mixed_6a.branch0`` its
+    ``mixed_6a_branch0``)."""
+    from impersonator_tpu_torch.metrics.zoo import InceptionResnetV1
+
+    def rename(owner):
+        owner = re.sub(r"^(repeat_\d)\.(\d+)", r"\1_\2", owner)
+        owner = re.sub(r"^(mixed_\da)\.", r"\1_", owner)
+        return owner.replace(".", "/")
+
+    return _from_module(_template(InceptionResnetV1), tree, rename)
+
+
+def osnet_state_dict_from_jax(tree: dict) -> dict:
+    """{'params', 'batch_stats'} flax OSNet tree -> this port's
+    ``metrics.reid.OSNet`` state dict (stage blocks ``conv2.{b}`` are
+    flax's ``conv2_{b}``, transitions ``conv2.2.0`` its ``conv2_t``,
+    Lite streams ``conv2b.{d}`` its ``conv2b_{d}``, the head ``fc.0`` /
+    ``fc.1`` its ``fc`` / ``fc_bn``)."""
+    from impersonator_tpu_torch.metrics.reid import OSNet
+
+    def rename(owner):
+        owner = re.sub(r"^conv(\d)\.2\.0", r"conv\1_t", owner)
+        owner = re.sub(r"^conv(\d)\.(\d)", r"conv\1_\2", owner)
+        owner = re.sub(r"conv2([bcd])\.(\d)", r"conv2\1_\2", owner)
+        owner = {"fc.0": "fc", "fc.1": "fc_bn"}.get(owner, owner)
+        return owner.replace(".", "/")
+
+    return _from_module(_template(OSNet), tree, rename)
+
+
+def pcb_state_dict_from_jax(tree: dict) -> dict:
+    """{'params', 'batch_stats'} flax PCBReid tree -> this port's
+    ``metrics.reid.PCBReid`` state dict (``model.layer1.0`` is flax's
+    ``layer1_0``, its ``downsample.0`` / ``.1`` the ``downsample_conv`` /
+    ``downsample_bn``)."""
+    from impersonator_tpu_torch.metrics.reid import PCBReid
+
+    def rename(owner):
+        owner = owner[len("model."):]
+        owner = re.sub(r"^(layer\d)\.(\d+)", r"\1_\2", owner)
+        owner = owner.replace("downsample.0", "downsample_conv")
+        owner = owner.replace("downsample.1", "downsample_bn")
+        return owner.replace(".", "/")
+
+    return _from_module(_template(PCBReid), tree, rename)
+
+
+def mtcnn_state_dicts_from_jax(tree: dict) -> dict:
+    """{'pnet', 'rnet', 'onet'} flax MTCNN trees (each {'params'}) -> the
+    state dicts of this port's ``metrics.mtcnn.PNet`` / ``RNet`` /
+    ``ONet`` (flax's conv wrappers add a ``conv`` level)."""
+    from impersonator_tpu_torch.metrics import mtcnn
+
+    def rename(owner):
+        return owner + "/conv" if owner.startswith("conv") else owner
+
+    return {name: _from_module(_template(cls), tree[name], rename)
+            for name, cls in (("pnet", mtcnn.PNet), ("rnet", mtcnn.RNet),
+                              ("onet", mtcnn.ONet))}
+
+
+def darknet_params_from_jax(params: dict) -> dict:
+    """The JAX package's folded darknet params ({conv{i}: {kernel HWIO,
+    bias}}) -> this port's ({conv{i}: {weight OIHW, bias}}) host arrays."""
+    return {name: {"weight": np.ascontiguousarray(
+                       np.asarray(p["kernel"], np.float32)
+                       .transpose(3, 2, 0, 1)),
+                   "bias": np.asarray(p["bias"], np.float32)}
+            for name, p in params.items()}

@@ -12,6 +12,7 @@ from impersonator_tpu import assets as jassets
 from impersonator_tpu import config as jconfig
 from impersonator_tpu_torch import assets as tassets
 from impersonator_tpu_torch import config as tconfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _assert_assets_equal(a, b):

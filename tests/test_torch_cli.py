@@ -20,6 +20,7 @@ from impersonator_tpu_torch.cli import (demos, run_imitator, run_swap,
 from impersonator_tpu_torch.config import TestConfig as TConfig
 from impersonator_tpu_torch.data import native
 from impersonator_tpu_torch.models.facenet import Sphere20a, init_facenet
+from torch_threads import one_torch_thread  # noqa: F401
 
 S = 64
 
@@ -69,7 +70,10 @@ def test_run_imitator_post_tune_with_face(img_files, tmp_path):
     """--post_tune --face_path: a Sphere20a msgpack in the JAX package's
     layout (flax's serializer over tools/convert_weights.py's tree of a
     seeded port net) is read back into the same weights, and the tune
-    runs with it."""
+    runs with it, over two prior poses from a --prior_poses pickle (five
+    steps, where the eight default priors take ten)."""
+    import pickle
+
     from flax import serialization
 
     from tools import convert_weights as cw
@@ -84,10 +88,16 @@ def test_run_imitator_post_tune_with_face(img_files, tmp_path):
     for k, v in want.items():
         assert torch.equal(got[k], v), k
 
+    priors = np.zeros((2, 85), np.float32)
+    priors[:, 0] = 0.9
+    priors[:, 3:75] = np.random.default_rng(1).normal(0, 0.1, (2, 72))
+    ppath = tmp_path / "priors.pkl"
+    ppath.write_bytes(pickle.dumps(priors))
     src, tgt = img_files
     preds = run_imitator.main(
         ["--src_path", src, "--tgt_path", tgt, "--batch", "2",
-         "--post_tune", "--face_path", str(fpath)] + _common(tmp_path))
+         "--post_tune", "--face_path", str(fpath),
+         "--prior_poses", str(ppath)] + _common(tmp_path))
     assert preds.shape == (2, S, S, 3)
     assert len(os.listdir(tmp_path / "out")) == 2
 

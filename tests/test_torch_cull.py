@@ -20,6 +20,7 @@ from impersonator_tpu_torch.ops import smpl as smpl_ops
 from impersonator_tpu_torch.scenes import degenerate_scene
 
 from test_torch_raster import _fuzz, _random_oversized
+from torch_threads import one_torch_thread  # noqa: F401
 
 KEEP_MAX = 0.10      # share of (warp, face) pairs kept on the 256² bodies
 

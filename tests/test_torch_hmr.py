@@ -35,6 +35,7 @@ from impersonator_tpu_torch.utils.cv_utils import resize_img_hwc as tresize
 from tools import convert_weights as cw
 
 import torch_ref
+from torch_threads import one_torch_thread  # noqa: F401
 
 S, CONV_DIM, REPEAT = 64, 8, 2
 

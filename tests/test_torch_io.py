@@ -49,6 +49,7 @@ from impersonator_tpu_torch.utils import visualizer as tvis
 from tools import convert_weights as cw
 
 import torch_ref
+from torch_threads import one_torch_thread  # noqa: F401
 
 S, CONV_DIM, REPEAT = 64, 8, 2
 FIX = (Path(__file__).resolve().parent.parent / "impersonator_tpu_torch"

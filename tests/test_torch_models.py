@@ -16,6 +16,7 @@ from impersonator_tpu_torch.utils.convert import \
 from tools import convert_weights as cw
 
 import torch_ref
+from torch_threads import one_torch_thread  # noqa: F401
 
 S, CONV_DIM, REPEAT = 64, 8, 2
 

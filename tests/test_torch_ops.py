@@ -17,6 +17,7 @@ from impersonator_tpu_torch.ops import morphology as tmorph
 from impersonator_tpu_torch.ops import rasterizer as trast
 from impersonator_tpu_torch.ops import sampler as tsampler
 from impersonator_tpu_torch.ops import smpl as tsmpl
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _thetas(rng, n):

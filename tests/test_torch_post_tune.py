@@ -44,6 +44,7 @@ from impersonator_tpu_torch.utils import convert
 from tools import convert_weights as cw
 
 import torch_ref
+from torch_threads import one_torch_thread  # noqa: F401
 
 S, CONV_DIM, REPEAT, LR = 64, 8, 2, 2e-4
 

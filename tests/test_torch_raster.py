@@ -25,6 +25,7 @@ from impersonator_tpu_torch.ops import flow as tflow
 from impersonator_tpu_torch.ops import rasterizer as trast
 
 from test_rasterizer import _random_faces
+from torch_threads import one_torch_thread  # noqa: F401
 
 NEAR, FAR = jrast.DEFAULT_NEAR, jrast.DEFAULT_FAR
 XLA_FMA_TOL = 1e-3

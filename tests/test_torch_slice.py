@@ -28,6 +28,7 @@ from impersonator_tpu_torch.tasks import imitator as TI
 from tools import convert_weights as cw
 
 import torch_ref
+from torch_threads import one_torch_thread  # noqa: F401
 
 S, CONV_DIM, REPEAT = 64, 8, 2
 ROOT = Path(__file__).resolve().parent.parent
@@ -150,6 +151,16 @@ PORT_MODULES = [
     "impersonator_tpu_torch.ops.soft_raster",
     "impersonator_tpu_torch.tasks.trainer_aug",
     "impersonator_tpu_torch.tasks.trainer_baseline",
+    "impersonator_tpu_torch.scenes",
+    "impersonator_tpu_torch.metrics",
+    "impersonator_tpu_torch.metrics.metrics",
+    "impersonator_tpu_torch.metrics.unpaired",
+    "impersonator_tpu_torch.metrics.zoo",
+    "impersonator_tpu_torch.metrics.reid",
+    "impersonator_tpu_torch.metrics.protocols",
+    "impersonator_tpu_torch.metrics.mtcnn",
+    "impersonator_tpu_torch.metrics.yolo",
+    "impersonator_tpu_torch.cli.evaluate",
 ]
 
 

@@ -36,6 +36,7 @@ from impersonator_tpu_torch.tasks.renderer import SMPLRenderer as TRenderer
 
 from test_rasterizer import _random_faces, _smpl_face_verts
 from test_torch_raster import _body, _random_oversized
+from torch_threads import one_torch_thread  # noqa: F401
 
 NEAR, FAR = jrast.DEFAULT_NEAR, jrast.DEFAULT_FAR
 XLA_FMA_TOL = 1e-3

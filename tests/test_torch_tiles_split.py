@@ -21,6 +21,7 @@ from impersonator_tpu_torch.scenes import tie_scene
 
 from test_torch_tiled import (FAR, NEAR, _jax_zbuffer_tiles, _scene,
                               _slots, _tiles_body_numpy)
+from torch_threads import one_torch_thread  # noqa: F401
 
 TIE_S, TIE_TILE = 32, 8
 

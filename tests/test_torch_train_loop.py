@@ -27,6 +27,7 @@ from impersonator_tpu_torch.models.layers import init_weights
 from impersonator_tpu_torch.tasks import trainer as TT
 
 from train_ref import S, Pair, batch, port_inputs
+from torch_threads import one_torch_thread  # noqa: F401
 
 # -- config and flags ---------------------------------------------------------
 

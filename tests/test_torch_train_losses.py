@@ -16,6 +16,7 @@ from impersonator_tpu_torch.tasks import trainer as TT
 
 from train_ref import (Pair, batch, disc_weights, gen_weights, l2_gaps,
                        port_inputs)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # every G term on: VGG at full resolution, style at 224², face, BCE mask
 # and its TV smoothing

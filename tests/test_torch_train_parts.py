@@ -48,6 +48,7 @@ from tools import convert_weights as cw
 
 from train_ref import (CONV_DIM, REPEAT, S, gen_sd, nchw, np_tree,
                        port_inputs, rel)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 # -- networks -----------------------------------------------------------------

@@ -20,6 +20,7 @@ from impersonator_tpu.tasks import trainer as JT
 from impersonator_tpu_torch.tasks import trainer as TT
 
 from train_ref import Pair, batch, disc_weights, gen_weights
+from torch_threads import one_torch_thread  # noqa: F401
 
 LR = 2e-4
 STEPS = 3

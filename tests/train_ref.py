@@ -14,7 +14,6 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from impersonator_tpu import assets as jassets
@@ -36,6 +35,7 @@ from impersonator_tpu_torch.utils import convert
 from tools import convert_weights as cw
 
 import torch_ref
+from torch_threads import one_torch_thread  # noqa: F401
 
 S, CONV_DIM, REPEAT, BATCH = 64, 8, 2, 2
 BASE = dict(image_size=S, repeat_num=REPEAT, batch_size=BATCH, d_layers=2)
@@ -195,17 +195,3 @@ def grads_by_name(module, loss) -> dict:
     names = [n for n, _ in module.named_parameters()]
     return dict(zip(names, torch.autograd.grad(
         loss, list(module.parameters()), materialize_grads=True)))
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Each test of a module that imports this runs torch on one CPU
-    thread (restored after it): the parity suites run in several worker
-    processes at once, where torch's per-process thread pools would
-    oversubscribe the cores many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
