@@ -181,6 +181,41 @@ Phases, each failing the run (exit 1) on any error:
    video at --max_frames 4, on the card (rows 1 / flow 2) and on the CPU
    (reading the frames through the card's decoder: the card's host has
    no libjpeg), results.json within EVAL_BOUNDS;
+15. the multi-card code paths on the one card (float32, TF32 off, cuDNN
+   deterministic, at phase 11's point: 256², batch 16, a 4-layer
+   PatchGAN, VGG19 + Sphere20a): (a) the train step twice without a
+   process group and once in a process group of one under NCCL
+   (parallel.init_distributed): losses bit-equal, all_reduce_mean_ over
+   one process the identity on the step's gradients, the gradients and
+   parameters within MC_NONDET_FACTOR of two plain steps' own gap (bit-
+   equal where theirs is 0); ms of each step (rows 3 / flow 3); (b) two
+   processes on the card (torch.multiprocessing.spawn), each on 8 of the
+   16 samples, each first stepping alone, then in a gloo group (a probe
+   all-reduce of a CUDA tensor first): all_reduce_mean_ of the steps'
+   gradients alone equal to their mean, bit for bit; the step in the
+   group (step_nets' all-reduce; rows 1 / flow 1 in each rank) against
+   the mean of their steps alone (losses MC_SAME_RTOL, gradients
+   MC_SAME_GRAD_RTOL) and against one process on all 16 (MC_LOSS_RTOL;
+   each net's MC_GRAD_RTOL per tensor and over all), both ranks'
+   parameters bit-equal after Adam, ms of each rank's two steps; (c) an
+   Imitator whose mesh names the card twice (bf16, phase 4's width):
+   personalize (rows 1: one personalisation, copied), three 64-frame
+   inference_by_smpls requests at batch 16 (flow 8 each: 4 batches x 2
+   pieces) and one 64-frame inference (flow 8), frames/s against phase
+   4; then in float32 the two-replica mesh at batch 16 against one
+   device at batch 8 (a piece's batch) on the same requests (PRED_TOL)
+   with frame 0's camera reference; (d)
+   run_imitator.main --data_parallel on 8 JPEG frames (rows 1 / flow 1)
+   and serve's ImitatorService(data_parallel=True) answering 64 θs (flow
+   4), each on a mesh of the visible cards. Two ranks or two replicas on
+   one card measure overhead, not scaling. Before and after the phase
+   (and before 5 and 5b), the process's state (process_state); the
+   seconds of (a)-(d). Phase 15 leaves glibc's heap ~3.9 GiB larger,
+   mostly free (the gradients and parameters it brings to the host), so
+   9 and 5 then take their CPU memory from that heap: 0.5 and 0.2 s of
+   system time on the H100's host against 89.5 and 81.8 s without phase
+   15 (9: 19.5 against 45.4 s; 5: 11.8 against 30.4), with the same
+   threads, flags and results;
 9. float32 with TF32 off, card against CPU on the same weights:
    swap_core on the card from the CPU's two states (preds within 1e-2),
    the flow kernel on the CPU's rotated meshes (fim equal to the twin's,
@@ -194,10 +229,11 @@ Phases, each failing the run (exit 1) on any error:
    wall time, the largest kernels and the z-buffer kernels' mean device
    time per launch (full tables in chiprun_out/profile_*.txt).
 
-Phases run in the order 1-4b, 7, 8, 8b, 10, 11, 12, 13, 14, 9, 5, 5b, 6.
-Each path (3c, 4, 4b, 7, 8, 8b, 10, 11's bf16, float32 and CLI runs,
-12's streamed requests and /imitate, 13's trainers and CLI runs, 14's
-cli.evaluate runs) runs
+Phases run in the order 1-4b, 7, 8, 8b, 10, 11, 12, 13, 14, 15, 9, 5,
+5b, 6. Each path (3c, 4, 4b, 7, 8, 8b, 10, 11's bf16, float32 and CLI
+runs, 12's streamed requests and /imitate, 13's trainers and CLI runs,
+14's cli.evaluate runs, 15's steps, mesh requests and data-parallel
+CLIs) runs
 with every launch count set to 0 just before it and read just after,
 and fails if a kernel of the path never launched; the record's
 launches_by_path holds each path's counts ("train", "train_fp32",
@@ -206,7 +242,11 @@ launches_by_path holds each path's counts ("train", "train_fp32",
 "train_aug_disk", "train_concat", "train_texture_warping",
 "train_feature_warping", "train_aug_cli" and
 "train_feature_warping_cli" for phase 13; "evaluate_cli" and
-"evaluate_cli_fp32" for phase 14). The seconds of each phase
+"evaluate_cli_fp32" for phase 14; "train_group_of_one",
+"train_two_ranks" (both ranks' counts, read in each rank's process),
+"mesh_personalize", "mesh_inference_by_smpls", "mesh_inference",
+"run_imitator_dp" and "serve_imitate_dp" for phase 15). The seconds of
+each phase
 and the whole script's wall time are printed before the record. The line before the
 last is nvidia-smi's name and power limit, the one before it the kernels' JSON record (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its float operations
@@ -286,6 +326,37 @@ EVAL_NET_RTOL, EVAL_FID_RTOL, EVAL_BOX_PX = 1e-4, 1e-3, 0.5
 EVAL_BOUNDS = {"ssim": 1e-5, "psnr": 1e-4, "lps": 1e-5}
 EVAL_VIDEOS, EVAL_FRAMES, EVAL_IMAGES = 2, 16, 64
 EVAL_MTCNN = (16, 256)          # MTCNN's frames and their size
+# phase 15: the phase-11 point (batch MC_BATCH, its samples from seed
+# MC_SEED), float32 without TF32, cuDNN's deterministic algorithms. Each
+# bound is about 3x the largest gap of four runs on the H100 (NVIDIA H100
+# 80GB HBM3, 700 W), whose readings agreed to 4 digits. Two processes on
+# 8 samples each against one on all 16: the losses within MC_LOSS_RTOL
+# (measured 2.955e-6 relative); the gradients of each net within
+# MC_GRAD_RTOL[net] = (per tensor, over all; relative L2), measured G
+# 9.435e-3 / 2.041e-3, D 3.205e-3 / 5.944e-4 (the tensors' norms below
+# 1e-5 of their net's are left out per tensor: D's conv biases before an
+# instance norm, 0 in exact arithmetic). They are not 0: the kernels at
+# batch 8 round otherwise than at 16, and the L1 terms' gradients are
+# signs, which those roundings flip (one process's own two halves are
+# 1.391e-3 from its batch of 16 over all tensors); a missing or
+# misscaled all-reduce of either net is off by O(1). A group of one
+# against no group: where two plain steps already differ (atomics in the
+# backward), the losses', gradients' and parameters' gaps may be up to
+# MC_NONDET_FACTOR times theirs (0 where theirs is 0).
+MC_BATCH, MC_SEED = 16, 3
+MC_LOSS_RTOL = 1e-5
+MC_GRAD_RTOL = {"G": (3e-2, 6e-3), "D": (1e-2, 2e-3)}
+MC_NONDET_FACTOR = 4.0
+# two processes in a group against their own steps alone: the losses
+# are the same sums, the all-reduce's mean of two rounding once more
+# (measured 5.956e-8 relative); the gradients over all within
+# MC_SAME_GRAD_RTOL (measured 3.457e-4 / 3.458e-4, where two steps in one
+# process differ by 6.7e-7): two processes sharing the card get other
+# cuDNN algorithms than one alone (the free memory differs) and the L1
+# terms' sign gradients flip with them. Each process may hold
+# MC_CARD_SHARE of the card's memory.
+MC_SAME_RTOL, MC_SAME_GRAD_RTOL = 2e-7, 1e-3
+MC_CARD_SHARE = 0.35
 
 
 def lap(name):
@@ -2499,6 +2570,482 @@ def evaluation_phase(cr, native, dev, tag):
     return by_path
 
 
+
+# -- phase 15: the multi-card code paths on one card -------------------------
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mc_trainer(tt, assets, dev):
+    """The phase-11 point in float32: 256², batch MC_BATCH, conv_dim 64, 6
+    res blocks, a 4-layer PatchGAN, VGG19 + Sphere20a (seeded)."""
+    from impersonator_tpu_torch.config import TrainConfig
+    cfg = TrainConfig(image_size=GEOM["s"], batch_size=MC_BATCH,
+                      repeat_num=6, use_vgg=True, use_style=False,
+                      use_face=True, train_dtype="float32")
+    return tt.build_trainer(cfg, assets, device=dev)
+
+
+def mc_step(tt, tr, batch):
+    """One G+D step from the config's seeded weights and fresh Adam ->
+    (losses, gradients, parameters after the step, ms of the step: CUDA
+    events around it, the all-reduce of a group included)."""
+    import torch
+    st = tr.init_state()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    st, m = tt.make_train_step(tr, train_d=True)(st, batch)
+    b.record()
+    b.synchronize()
+    named = [(f"{n}.{k}", p) for n, net in (("G", st.generator),
+                                            ("D", st.discriminator))
+             for k, p in net.named_parameters()]
+    return ({k: float(v) for k, v in m.items()},
+            {k: p.grad.detach().clone() for k, p in named},
+            {k: p.detach().clone() for k, p in named}, a.elapsed_time(b))
+
+
+def process_state():
+    """What phase 15 could leave behind in this process, and how the host
+    runs now: torch's intra- and inter-op threads, the cuDNN and matmul
+    flags, whether a process group is up, Python's and the OS's threads,
+    live child processes, the load average, the ms of a fixed float32 CPU
+    conv (median of 3), this process's user and system CPU seconds so far
+    (getrusage), and glibc's heap (mallinfo2: the arenas' bytes, the free
+    bytes inside them, the mmapped bytes). The system seconds a later
+    phase adds are the kernel's work of giving it fresh memory."""
+    import ctypes
+    import multiprocessing
+    import os
+    import resource
+    import threading
+    import torch
+    import torch.nn.functional as F
+    x = torch.randn(2, 64, 128, 128,
+                    generator=torch.Generator().manual_seed(0))
+    w = torch.randn(64, 64, 3, 3, generator=torch.Generator().manual_seed(1))
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        F.conv2d(x, w, padding=1)
+        ms.append((time.perf_counter() - t0) * 1e3)
+
+    class MallInfo2(ctypes.Structure):
+        _fields_ = [(n, ctypes.c_size_t) for n in (
+            "arena", "ordblks", "smblks", "hblks", "hblkhd", "usmblks",
+            "fsmblks", "uordblks", "fordblks", "keepcost")]
+
+    try:
+        libc = ctypes.CDLL(None)
+        libc.mallinfo2.restype = MallInfo2
+        mi = libc.mallinfo2()
+        heap = {"arena_mib": mi.arena >> 20, "free_mib": mi.fordblks >> 20,
+                "mmapped_mib": mi.hblkhd >> 20}
+    except (OSError, AttributeError):
+        heap = None
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    with open("/proc/self/status") as f:
+        os_threads = next((int(ln.split()[1]) for ln in f
+                           if ln.startswith("Threads:")), None)
+    return {"torch_threads": torch.get_num_threads(),
+            "interop_threads": torch.get_num_interop_threads(),
+            "cudnn": (torch.backends.cudnn.allow_tf32,
+                      torch.backends.cudnn.deterministic,
+                      torch.backends.cudnn.benchmark),
+            "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "dist": torch.distributed.is_initialized(),
+            "py_threads": threading.active_count(),
+            "os_threads": os_threads,
+            "children": len(multiprocessing.active_children()),
+            "loadavg": os.getloadavg(),
+            "cpu_conv_ms": round(sorted(ms)[1], 3),
+            "utime_s": round(ru.ru_utime, 1),
+            "stime_s": round(ru.ru_stime, 1), "heap": heap}
+
+
+def gloo_rank(rank, port, out_dir, dev_type):
+    """Phase 15 (b), one of two processes on the one card (each held to
+    MC_CARD_SHARE of its memory): the phase-11 point's float32 step on
+    rows [8 rank, 8 rank + 8) of the 16-sample batch alone; then in a
+    gloo group of two a probe all-reduce of a CUDA tensor,
+    all_reduce_mean_ of that step's gradients, and the same step again,
+    whose gradients and losses step_nets averages with the other
+    process's. Writes both steps' losses, gradients and ms, the
+    collective's result, the parameters and the launch counts of the
+    group's step to out_dir/rank{rank}.pt."""
+    import torch
+    import torch.distributed as dist
+    from impersonator_tpu_torch.assets import bench_assets
+    from impersonator_tpu_torch.data.loader import stage_batch
+    from impersonator_tpu_torch.ops import cuda_raster as cr
+    from impersonator_tpu_torch.parallel import distributed as pdist
+    from impersonator_tpu_torch.tasks import trainer as tt
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device(dev_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        dev = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_per_process_memory_fraction(MC_CARD_SHARE)
+    tr = mc_trainer(tt, bench_assets(), dev)
+    half = MC_BATCH // 2
+    full = train_batch(GEOM["s"], MC_BATCH, MC_SEED)
+    batch = stage_batch({k: v[rank * half:(rank + 1) * half]
+                         for k, v in full.items()}, dev)
+    m_alone, g_alone, _, ms_alone = mc_step(tt, tr, batch)
+    check(pdist.init_distributed(f"127.0.0.1:{port}", 2, rank,
+                                 backend="gloo", device=dev),
+          f"rank {rank} is not in a group of 2")
+    probe = torch.full((4,), float(rank + 1), device=dev)
+    dist.all_reduce(probe)
+    check(probe.device == dev and bool((probe == 3.0).all()),
+          f"gloo all-reduce of a {dev.type} tensor gave {probe.tolist()}")
+    coll = [v.clone() for v in g_alone.values()]
+    pdist.all_reduce_mean_(coll)
+    reset_counts(cr)
+    m, g, p, ms = mc_step(tt, tr, batch)
+    launches = read_counts(cr)
+    torch.save({"metrics": m, "grads": {k: v.cpu() for k, v in g.items()},
+                "alone": (m_alone, {k: v.cpu() for k, v in g_alone.items()}),
+                "collective": {k: v.cpu() for k, v in zip(g_alone, coll)},
+                "params": {k: v.cpu() for k, v in p.items()},
+                "ms": (ms_alone, ms), "launches": launches,
+                "device": str(dev)},
+               Path(out_dir) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def max_loss_gap(a, b):
+    """Largest |a - b| / max(|b|, 1e-3) over the loss terms of b."""
+    return max(abs(a[k] - v) / max(abs(v), 1e-3) for k, v in b.items())
+
+
+def nccl_world_one(tt, tr, batch, backend, tag):
+    """Phase 15 (a): the step twice without a process group, then under
+    a process group of one (NCCL on the card) -> (the first plain run's
+    losses and gradients on the host, ms of the two plain steps)."""
+    import torch
+    import torch.distributed as dist
+    from impersonator_tpu_torch.parallel import distributed as pdist
+    plain = [mc_step(tt, tr, batch) for _ in range(2)]
+    check(not pdist.init_distributed(
+        f"127.0.0.1:{free_port()}", 1, 0, backend=backend,
+        device=batch["images"].device),
+        "a group of one reports more processes")
+    try:
+        got = dist.get_backend()
+        m_d, g_d, p_d, ms_d = mc_step(tt, tr, batch)
+        again = {k: v.clone() for k, v in g_d.items()}
+        pdist.all_reduce_mean_(list(again.values()))
+        identity = all(torch.equal(again[k], g_d[k]) for k in g_d)
+    finally:
+        dist.destroy_process_group()
+    (m0, g0, p0, ms0), (m1, g1, p1, ms1) = plain
+    gaps = {"losses": (max_loss_gap(m1, m0), max_loss_gap(m_d, m0)),
+            "gradients": (tensor_gaps(g1, g0)[1], tensor_gaps(g_d, g0)[1]),
+            "parameters": (tensor_gaps(p1, p0)[1],
+                           tensor_gaps(p_d, p0)[1])}
+    print(f"multi-card (a), {got} process group of one, the phase-11 point "
+          f"in float32 (TF32 off, cuDNN deterministic): all_reduce_mean_ "
+          f"over one process is the identity on the step's {len(g_d)} "
+          f"gradients: {identity}; gap of the step in the group to the "
+          f"plain step (two plain steps' own gap): "
+          + ", ".join(f"{k} {v[1]:.3e} ({v[0]:.3e})"
+                      for k, v in gaps.items())
+          + f" (losses: max relative; gradients, parameters: L2 over "
+            f"all); ms of the plain steps {ms0:.3f}, {ms1:.3f}, in the "
+            f"group {ms_d:.3f} {tag}", flush=True)
+    check(got == (backend or "nccl"), f"process group backend {got}")
+    check(identity, "all_reduce_mean_ over one process changed a gradient")
+    # bit-equal where the plain step is itself deterministic; where its
+    # backward is not (atomics in the warps' and resizes' gradients), the
+    # step in the group may differ from the plain one only as much as two
+    # plain steps differ from each other
+    for k, (plain_gap, group_gap) in gaps.items():
+        check(group_gap <= MC_NONDET_FACTOR * plain_gap,
+              f"group of one: {k} gap {group_gap} against {plain_gap} "
+              f"between two plain steps")
+    return m0, {k: v.cpu() for k, v in g0.items()}, [ms0, ms1]
+
+
+def gloo_two_ranks(one, halves, one_ms, dev, tag):
+    """Phase 15 (b): two processes on the one card under gloo, each on 8
+    of the 16 samples. all_reduce_mean_ of their steps' gradients alone
+    must be the mean of those gradients, bit for bit; the step in the
+    group (step_nets' all-reduce) is held against the mean of their steps
+    alone and against one process's step on all 16 (``one``: losses,
+    gradients; ``halves``: the same process's steps on each half, whose
+    gap to it is printed). Returns the launch counts of both ranks' steps
+    in the group, summed."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        mp.spawn(gloo_rank, args=(free_port(), out, dev.type), nprocs=2,
+                 join=True)
+        ranks = [torch.load(Path(out) / f"rank{r}.pt") for r in range(2)]
+    wall = time.perf_counter() - t0
+    r0, r1 = ranks
+    check(r0["metrics"] == r1["metrics"], "the ranks' averaged losses differ")
+    check(all(torch.equal(r0["params"][k], r1["params"][k])
+              for k in r0["params"]), "the ranks' parameters differ")
+    m_one, g_one = one
+    alone = [r["alone"] for r in ranks]
+    m_half = {k: (alone[0][0][k] + alone[1][0][k]) / 2 for k in m_one}
+    g_half = {k: (alone[0][1][k] + alone[1][1][k]) / 2 for k in g_one}
+    collective = all(torch.equal(r0["collective"][k], g_half[k]) and
+                     torch.equal(r1["collective"][k], g_half[k])
+                     for k in g_half)
+    half_loss = max_loss_gap(r0["metrics"], m_half)
+    half_gap = tensor_gaps(r0["grads"], g_half)[1]
+    batch_gap = tensor_gaps({k: (halves[0][1][k] + halves[1][1][k]) / 2
+                             for k in g_one}, g_one)[1]
+    one_loss = max_loss_gap(r0["metrics"], m_one)
+    gaps = {}
+    for net in "GD":
+        keys = [k for k in g_one if k[0] == net]
+        net_norm = float(torch.cat([g_one[j].flatten() for j in keys]).norm())
+        # D's conv biases before an instance norm: 0 in exact arithmetic
+        keys_t = [k for k in keys
+                  if float(g_one[k].norm()) > 1e-5 * net_norm]
+        gaps[net] = (tensor_gaps({k: r0["grads"][k] for k in keys_t},
+                                 {k: g_one[k] for k in keys_t})[0],
+                     tensor_gaps({k: r0["grads"][k] for k in keys},
+                                 {k: g_one[k] for k in keys})[1])
+    print(f"multi-card (b), 2 processes on one card under gloo, 8 samples "
+          f"each, float32, TF32 off, cuDNN deterministic: all_reduce_mean_ "
+          f"of their steps' gradients alone is their mean bit for bit: "
+          f"{collective}; the step in the group against the mean of their "
+          f"steps alone: losses {half_loss:.3e} (bound {MC_SAME_RTOL}), "
+          f"gradients {half_gap:.3e} over all (bound "
+          f"{MC_SAME_GRAD_RTOL}); against one process on all 16 (one "
+          f"process's own halves are {batch_gap:.3e} from it), averaged "
+          f"losses max relative gap {one_loss:.3e} (bound {MC_LOSS_RTOL}); "
+          f"gradient gap per tensor / over all: G {gaps['G'][0]:.3e} / "
+          f"{gaps['G'][1]:.3e} (bounds {MC_GRAD_RTOL['G']}), D "
+          f"{gaps['D'][0]:.3e} / {gaps['D'][1]:.3e} (bounds "
+          f"{MC_GRAD_RTOL['D']}); both ranks' parameters bit-equal after "
+          f"Adam; {wall:.1f} s of wall time with the processes' start-up "
+          f"{tag}", flush=True)
+    print(f"multi-card (b): ms a G+D step (CUDA events; alone, then in the "
+          f"group with the gloo all-reduce through the host) rank 0 "
+          f"{[round(x, 3) for x in r0['ms']]}, rank 1 "
+          f"{[round(x, 3) for x in r1['ms']]} at batch 8, against one "
+          f"process at batch 16 {[round(x, 3) for x in one_ms]}; two ranks "
+          f"on one card measure the all-reduce's overhead, not scaling "
+          f"{tag}", flush=True)
+    check(collective, "all_reduce_mean_ over two processes is not the mean")
+    check(half_loss <= MC_SAME_RTOL and half_gap <= MC_SAME_GRAD_RTOL,
+          f"two ranks against their steps alone: losses {half_loss}, "
+          f"gradients {half_gap}")
+    check(one_loss <= MC_LOSS_RTOL, f"two-rank losses {one_loss}")
+    for net in "GD":
+        check(gaps[net][0] <= MC_GRAD_RTOL[net][0] and
+              gaps[net][1] <= MC_GRAD_RTOL[net][1],
+              f"two-rank {net} gradients {gaps[net]}")
+    return {k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+
+
+def mesh_imitator_checks(cr, imi, assets, cfg, imit_h, src_img, thetas,
+                         req_thetas, tgt_imgs, fps_solo, dev, tag):
+    """Phase 15 (c): an Imitator whose mesh names the card twice. Returns
+    {path: launch counts}."""
+    import numpy as np
+    import torch
+    from impersonator_tpu_torch.config import TestConfig
+    from impersonator_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(devices=[dev, dev])
+    dp = imi.Imitator(cfg, assets=assets, nets=imit_h.nets, mesh=mesh)
+    check(len(dp.replicas) == 2 and dp.replicas[1].compute_nets.generator
+          is not dp.compute_nets.generator, "the mesh's replicas")
+    out = {}
+    reset_counts(cr)
+    dp.personalize(src_img, src_smpl=thetas[0])
+    torch.cuda.synchronize()
+    out["mesh_personalize"] = read_counts(cr)
+    reset_counts(cr)
+    req, preds = requests(lambda: dp.inference_by_smpls(req_thetas,
+                                                        batch=16))
+    out["mesh_inference_by_smpls"] = read_counts(cr)
+    reset_counts(cr)
+    req_h, preds_h = requests(lambda: dp.inference(tgt_imgs, batch=16), 1)
+    out["mesh_inference"] = read_counts(cr)
+    check(out["mesh_personalize"]["zbuffer_bucket_rows"] == 1 and
+          out["mesh_personalize"]["zbuffer_bucket_flow"] == 0,
+          f"mesh personalize launches {out['mesh_personalize']} (one "
+          f"personalisation, copied to the replica)")
+    check(out["mesh_inference_by_smpls"]["zbuffer_bucket_flow"] == 3 * 8,
+          f"mesh inference_by_smpls launches "
+          f"{out['mesh_inference_by_smpls']} (3 requests x 4 batches x 2 "
+          f"pieces)")
+    check(out["mesh_inference"]["zbuffer_bucket_flow"] == 8,
+          f"mesh inference launches {out['mesh_inference']}")
+    for x in (preds, preds_h):
+        check(tuple(x.shape) == (64, GEOM["s"], GEOM["s"], 3) and
+              bool(torch.isfinite(x).all()), "mesh preds")
+    fps = 64 / sorted(req)[1]
+    print(f"multi-card (c), an Imitator on a mesh naming the card twice "
+          f"(bf16, 256^2, batch 16 in two pieces of 8): inference_by_smpls "
+          f"requests {[round(x, 4) for x in req]} s for 64 frames, median "
+          f"{fps:.1f} frames/s against {fps_solo:.1f} on one device "
+          f"(phase 4); inference (HMR) {req_h[0]:.4f} s; launches "
+          f"{out}; two replicas on one card measure the split's overhead, "
+          f"not scaling {tag}", flush=True)
+
+    cfg32 = TestConfig(image_size=GEOM["s"], repeat_num=6,
+                       compute_dtype="float32")
+    nets32 = imi.build_nets(cfg32, assets)
+    solo = imi.Imitator(cfg32, assets=assets, nets=nets32, device=dev)
+    dp32 = imi.Imitator(cfg32, assets=assets, nets=nets32, mesh=mesh)
+    gaps = []
+    for im in (solo, dp32):
+        im.personalize(src_img, src_smpl=thetas[0])
+    # the mesh at batch 16 runs pieces of 8: held against one device at
+    # batch 8, the same kernels on the same rows (at batch 16 HMR's θs
+    # round otherwise, which moves a few edge pixels of the raster by
+    # O(1)); the camera reference of every piece is frame 0's: its θ, or
+    # its θ from HMR on the first piece
+    for fn, cam in (
+            (lambda im, b: im.inference_by_smpls(req_thetas, batch=b),
+             lambda: torch.as_tensor(req_thetas[0:1, 0:3], device=dev)),
+            (lambda im, b: im.inference(tgt_imgs, batch=b),
+             lambda: dp32.regress_smpl(tgt_imgs[:8])[0:1, 0:3])):
+        a, b = fn(solo, 8), fn(dp32, 16)
+        gaps.append(float((a - b).abs().max()))
+        check(torch.equal(dp32.first_cam, cam()),
+              "the mesh's camera reference is not frame 0's")
+    print(f"multi-card (c), float32 (TF32 off): the two-replica mesh at "
+          f"batch 16 against one device at batch 8, 64 frames, max |dpred| "
+          f"inference_by_smpls {gaps[0]:.3e}, inference {gaps[1]:.3e} "
+          f"(bound {PRED_TOL}) {tag}", flush=True)
+    check(max(gaps) <= PRED_TOL, f"mesh preds differ by {gaps}")
+    return out
+
+
+def data_parallel_cli_checks(cr, cfg, src_img, thetas, req_thetas, native,
+                             dev, tag):
+    """Phase 15 (d): run_imitator --data_parallel in this process and
+    serve's service with data_parallel=True, on a mesh of the visible
+    cards. Returns {path: launch counts}."""
+    import tempfile
+    import numpy as np
+    import torch
+    from impersonator_tpu_torch.cli import run_imitator, serve
+    from impersonator_tpu_torch.utils.visualizer import write_png
+    s, n = GEOM["s"], 8
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "tgt").mkdir()
+        for i, f in enumerate(smooth_frames(n, s, 15)):
+            (tmp / "tgt" / f"{i:03d}.jpg").write_bytes(
+                native.encode_jpeg(f, device=dev))
+        src_u8 = np.round((src_img + 1.0) * 127.5).clip(0, 255).astype(
+            np.uint8)
+        write_png(str(tmp / "src.png"), src_u8)
+        reset_counts(cr)
+        t0 = time.perf_counter()
+        preds = run_imitator.main([
+            "--src_path", str(tmp / "src.png"), "--tgt_path",
+            str(tmp / "tgt"), "--output_dir", str(tmp / "out"),
+            "--checkpoints_dir", str(tmp / "ckpt"), "--image_size", str(s),
+            "--batch", str(n), "--data_parallel", "--device", dev.type])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        out["run_imitator_dp"] = read_counts(cr)
+        check(len(preds) == n and len(list((tmp / "out").glob("pred_*")))
+              == n, "run_imitator --data_parallel preds")
+        service = serve.ImitatorService(cfg, batch=16, data_parallel=True,
+                                        device=dev)
+        try:
+            mesh = service.imitator.mesh
+            check(mesh is not None and mesh.size == torch.cuda.device_count(),
+                  f"serve's data-parallel mesh {mesh}")
+            service.personalize(native.encode_jpeg(src_u8, device=dev),
+                                smpl=thetas[0])
+            reset_counts(cr)
+            reply = service.imitate(req_thetas)
+            out["serve_imitate_dp"] = read_counts(cr)
+        finally:
+            service.close()
+    check(out["run_imitator_dp"]["zbuffer_bucket_rows"] == 1 and
+          out["run_imitator_dp"]["zbuffer_bucket_flow"] == 1,
+          f"run_imitator --data_parallel launches {out['run_imitator_dp']}")
+    check(len(reply["frames"]) == 64 and
+          out["serve_imitate_dp"]["zbuffer_bucket_flow"] == 4,
+          f"serve data_parallel /imitate: {len(reply['frames'])} frames, "
+          f"launches {out['serve_imitate_dp']}")
+    print(f"multi-card (d), mesh of the {torch.cuda.device_count()} visible "
+          f"card(s): run_imitator --data_parallel in-process on {n} JPEG "
+          f"frames {cli_s:.2f} s of wall time (first call: nets, HMR, "
+          f"files), launches {out['run_imitator_dp']}; serve with "
+          f"data_parallel=True: 64 theta -> 64 JPEGs, launches "
+          f"{out['serve_imitate_dp']} {tag}", flush=True)
+    return out
+
+
+def multi_card_phase(cr, imi, assets, cfg, imit_h, src_img, thetas,
+                     req_thetas, tgt_imgs, fps_solo, dev, tag,
+                     backend=None):
+    """Phase 15 (module docstring); returns {path: launch counts}.
+    ``backend`` names (a)'s backend when it is not the card's NCCL."""
+    import torch
+    from impersonator_tpu_torch.data import native
+    from impersonator_tpu_torch.data.loader import stage_batch
+    from impersonator_tpu_torch.tasks import trainer as tt
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    parts = [time.perf_counter()]
+    try:
+        tr = mc_trainer(tt, assets, dev)
+        batch = stage_batch(train_batch(GEOM["s"], MC_BATCH, MC_SEED), dev)
+        reset_counts(cr)
+        m_one, g_one, one_ms = nccl_world_one(tt, tr, batch, backend, tag)
+        by_path = {"train_group_of_one": read_counts(cr)}
+        check(by_path["train_group_of_one"]["zbuffer_bucket_rows"] == 3 and
+              by_path["train_group_of_one"]["zbuffer_bucket_flow"] == 3,
+              f"(a)'s launches {by_path['train_group_of_one']} (3 steps)")
+        half = MC_BATCH // 2
+        halves = []
+        for r in range(2):
+            m, g, _, _ = mc_step(tt, tr, {k: v[r * half:(r + 1) * half]
+                                          for k, v in batch.items()})
+            halves.append((m, {k: v.cpu() for k, v in g.items()}))
+        del tr, batch
+        torch.cuda.empty_cache()
+        parts.append(time.perf_counter())
+        by_path["train_two_ranks"] = gloo_two_ranks(
+            (m_one, g_one), halves, one_ms, dev, tag)
+        parts.append(time.perf_counter())
+        torch.backends.cudnn.deterministic = flags[1]
+        check(by_path["train_two_ranks"]["zbuffer_bucket_rows"] == 2 and
+              by_path["train_two_ranks"]["zbuffer_bucket_flow"] == 2,
+              f"two ranks' launches {by_path['train_two_ranks']} (one step "
+              f"each)")
+        by_path.update(mesh_imitator_checks(
+            cr, imi, assets, cfg, imit_h, src_img, thetas, req_thetas,
+            tgt_imgs, fps_solo, dev, tag))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    parts.append(time.perf_counter())
+    by_path.update(data_parallel_cli_checks(cr, cfg, src_img, thetas,
+                                            req_thetas, native, dev, tag))
+    parts.append(time.perf_counter())
+    print("multi-card: seconds of wall time of (a), (b), (c), (d) "
+          + ", ".join(f"{b - a:.1f}" for a, b in zip(parts, parts[1:])),
+          flush=True)
+    return by_path
+
+
 def main():
     import numpy as np
     import torch
@@ -2936,6 +3483,14 @@ def main():
     lap("14")
     eval_launches = evaluation_phase(cr, native, dev, tag)
 
+    # -- phase 15: the multi-card code paths on one card --------------------
+    lap("15")
+    print(f"process state before phase 15: {process_state()}", flush=True)
+    mc_launches = multi_card_phase(cr, imi, assets, cfg, imit_h, src_img,
+                                   thetas, req_thetas, tgt_imgs, fps, dev,
+                                   tag)
+    print(f"process state after phase 15: {process_state()}", flush=True)
+
     # -- phase 9: fp32 (TF32 off) card vs CPU: swap, view, DeepFill ----------
     lap("9")
     torch.backends.cudnn.allow_tf32 = False
@@ -2991,6 +3546,7 @@ def main():
 
     # -- phase 5: fp32 card vs CPU -----------------------------------------
     lap("5")
+    print(f"process state at phase 5: {process_state()}", flush=True)
     ims, sts, preds = [], [], []
     for d in (dev, cpu):
         im = imi.Imitator(cfg32, assets=assets, device=d)
@@ -3049,6 +3605,7 @@ def main():
 
     # -- phase 5b: HMR card vs CPU ------------------------------------------
     lap("5b")
+    print(f"process state at phase 5b: {process_state()}", flush=True)
     # both TF32 flags on for the process: HMR keeps its own convs and
     # matmuls in full float32; its encoder called outside that scope shows
     # what TF32 would do to the features
@@ -3133,7 +3690,8 @@ def main():
                "deepfill_front_warp": launches_bg,
                "post_tune_imitator": pt_launches,
                "post_tune_swapper": pt_sw_launches, **train_launches,
-               **io_launches, **trainer_launches, **eval_launches}
+               **io_launches, **trainer_launches, **eval_launches,
+               **mc_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"impersonator_tpu_torch/csrc/{src}",

@@ -1,26 +1,36 @@
 """impersonator_tpu_torch — the PyTorch / CUDA port of impersonator_tpu.
 
 The JAX package ``impersonator_tpu`` stays the reference; this package
-mirrors its module names (``ops``, ``models``, ``tasks``, ``utils``) in
-PyTorch idiom and replaces its Pallas TPU kernels with kernels written
-by hand for NVIDIA Hopper (``csrc/``, built by nvcc at first use into
-``_build/``). It imports torch and never jax, and nothing of the JAX
-package: ``assets`` and ``config`` are its own copies of the JAX
-package's framework-free modules.
+mirrors its module names and public names in PyTorch idiom and replaces
+its Pallas TPU kernels with kernels written by hand for NVIDIA Hopper
+(``csrc/``, built by nvcc at first use into ``_build/``). It imports
+torch and never jax, and nothing of the JAX package: ``assets`` and
+``config`` are its own copies of the JAX package's framework-free
+modules. Entry points run on CUDA unless the caller asks for the CPU.
 
-Ported so far: motion imitation — ``tasks.imitator.Imitator.personalize``
-(from a given θ or from HMR, ``models.hmr``), ``inference_by_smpls`` and
-``inference`` (HMR on each target image) — with all three z-buffer
-kernels: ``ops.cuda_raster.zbuffer_bucket_rows`` and
-``zbuffer_bucket_flow`` on the bucket path, ``zbuffer_tiles`` on the
-fixed-slot tiled path that the renderer takes for meshes over 60,000
-faces. Appearance transfer (``tasks.swapper.Swapper``), novel view
-(``tasks.viewer.Viewer``) and the animator run on the same kernels, with
-the DeepFill background net (``models.inpaintor``) when ``bg_model`` is
-not ORIGINAL; ``tasks.factory.get_by_name`` builds any of these tasks.
-Test-time post-tune is ``tasks.post_tune``. The single-card adversarial
-trainer is ``tasks.trainer`` (with ``models.discriminator``, ``data``,
-``utils.checkpoint``, ``utils.visualizer`` and ``cli.train``).
-``utils.convert`` carries the JAX param trees' weights over, and
-``utils.checkpoint.read_flax_msgpack`` reads the JAX package's files.
+Layout
+------
+- ``ops``       SMPL, projection and cameras, the fim/wim rasterizer with
+                its three hand-written z-buffer kernels
+                (``ops.cuda_raster``: ``zbuffer_bucket_rows``,
+                ``zbuffer_bucket_flow``, ``zbuffer_tiles``), flows,
+                warping, morphology, the soft silhouette, colour spaces.
+- ``models``    the LWB generator, DeepFill, the discriminators, HMR, the
+                loss and face nets, the ablation baselines.
+- ``tasks``     motion imitation (``Imitator``, also on a device mesh),
+                appearance transfer (``Swapper``), novel view
+                (``Viewer``), the animator, test-time post-tune, the base,
+                augmented and baseline trainers.
+- ``parallel``  device meshes (``Imitator(mesh=...)``) and multi-process
+                training on ``torch.distributed``.
+- ``data``      the datasets, the loader, the image codec (nvJPEG on the
+                card, libjpeg on the CPU).
+- ``metrics``   paired and unpaired metrics, LPIPS / Inception / face /
+                re-id nets, MTCNN and YOLO.
+- ``utils``     checkpoints, the JAX weight bridge (``utils.convert``,
+                ``utils.checkpoint.read_flax_msgpack``), IO, video,
+                profiling, precision scopes, person masks
+                (``utils.detectors``).
+- ``cli``       train, run_imitator, run_swap, run_view, serve, demos,
+                evaluate.
 """

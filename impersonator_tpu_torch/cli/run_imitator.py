@@ -11,7 +11,8 @@ packed on the device (uint8 RGB, or I420 with ``--i420``); each is
 written as ``pred_<name>``, then ``pred.mp4`` and ``montage.mp4`` when
 the host has ffmpeg. Besides every TestConfig flag: ``--prior_poses``,
 ``--face_path`` (a Sphere20a msgpack of the JAX package, for post-tune's
-face loss), ``--batch`` (32), ``--i420``, ``--data_parallel`` and
+face loss), ``--batch`` (32), ``--i420``, ``--data_parallel`` (each
+frame batch split over every visible card, ``Imitator(mesh=...)``) and
 ``--device`` (default cuda; no fallback when there is no card).
 """
 
@@ -25,11 +26,10 @@ import torch
 
 from impersonator_tpu_torch.config import TestConfig, from_args
 from impersonator_tpu_torch.ops.colorspace import i420_to_rgb
+from impersonator_tpu_torch.parallel.mesh import make_mesh, visible_devices
 from impersonator_tpu_torch.tasks.imitator import Imitator
 from impersonator_tpu_torch.utils import cv_utils
 from impersonator_tpu_torch.utils import video
-
-MULTI_CARD_ITEM = "ROADMAP Queue 1 item 10b-iii"
 
 
 def collect_frames(tgt_path: str):
@@ -40,14 +40,11 @@ def collect_frames(tgt_path: str):
     return [tgt_path]
 
 
-def check_data_parallel(device) -> None:
-    """``--data_parallel``: a no-op on one device, as the JAX CLI's on one
-    chip; sharding frames over several cards is not ported yet."""
+def data_parallel_mesh(device):
+    """``--data_parallel``: a mesh over every visible card (as the JAX
+    CLI's over its chips); one device on one card or on the CPU."""
     device = torch.device(device)
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"--data_parallel over {torch.cuda.device_count()} cards is not "
-            f"ported yet ({MULTI_CARD_ITEM})")
+    return make_mesh(devices=visible_devices(device.type))
 
 
 def load_face_net(path: str, device):
@@ -69,8 +66,8 @@ def parse_extra(argv):
     parser.add_argument("--face_path", default=None,
                         help="Sphere20a msgpack: adds post-tune's face loss")
     parser.add_argument("--data_parallel", action="store_true",
-                        help="shard the frames over the visible cards "
-                             "(one card: no-op)")
+                        help="split each frame batch over the visible "
+                             "cards")
     parser.add_argument("--batch", type=int, default=32,
                         help="frames per device step")
     parser.add_argument("--i420", action="store_true",
@@ -86,10 +83,9 @@ def main(argv=None):
     cfg = from_args(TestConfig, argv)
     extra = parse_extra(argv)
     device = torch.device(extra.device)
-    if extra.data_parallel:
-        check_data_parallel(device)
     cfg.save("test")
-    imitator = Imitator(cfg, device=device)
+    mesh = data_parallel_mesh(device) if extra.data_parallel else None
+    imitator = Imitator(cfg, device=device, mesh=mesh)
 
     src_img = cv_utils.resize_img_hwc(
         cv_utils.read_img(cfg.src_path, device), cfg.image_size)

@@ -1,6 +1,7 @@
 """Inference server for motion imitation over HTTP (torch port of
 ``impersonator_tpu/cli/serve.py``): the stdlib ThreadingHTTPServer, one
-process per card.
+process per card, or one for every visible card with ``--data_parallel``
+(each request's frame batches split over them).
 
     python -m impersonator_tpu_torch.cli.serve --port 8080 \\
         [--image_size 256 --batch 8 --device cpu]
@@ -57,14 +58,13 @@ class ImitatorService:
     def __init__(self, cfg: TestConfig, batch: int = 8,
                  data_parallel: bool = False, device="cuda"):
         from impersonator_tpu_torch.cli.run_imitator import (
-            check_data_parallel)
+            data_parallel_mesh)
         from impersonator_tpu_torch.tasks.imitator import Imitator
         self.cfg = cfg
         self.batch = batch
         self.device = torch.device(device)
-        if data_parallel:
-            check_data_parallel(self.device)
-        self.imitator = Imitator(cfg, device=self.device)
+        mesh = data_parallel_mesh(self.device) if data_parallel else None
+        self.imitator = Imitator(cfg, device=self.device, mesh=mesh)
         self.backend = self.device.type
         self._worker = ThreadPoolExecutor(1, thread_name_prefix="imitator")
 
@@ -223,8 +223,7 @@ def main(argv=None):
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--data_parallel", action="store_true",
-                    help="shard request batches over the visible cards "
-                         "(one card: no-op)")
+                    help="split request batches over the visible cards")
     ap.add_argument("--device", default="cuda")
     extra, _ = ap.parse_known_args(argv)
 

@@ -1,5 +1,16 @@
 """Networks (torch nn.Modules, NCHW) and their registry (torch port of
-``impersonator_tpu/models/__init__.py:18-34``)."""
+``impersonator_tpu/models/__init__.py``, with its names)."""
+
+_EXPORTS = {
+    "ImpersonatorGenerator": "generator",
+    "ResUnetGenerator": "generator",
+    "ResNetGenerator": "generator",
+    "PatchDiscriminator": "discriminator",
+    "GlobalLocalDiscriminator": "discriminator",
+    "MultiScaleDiscriminator": "discriminator",
+    "InpaintSANet": "inpaintor",
+    "HumanModelRecovery": "hmr",
+}
 
 
 def get_by_name(network_name: str, **kwargs):
@@ -26,3 +37,16 @@ def get_by_name(network_name: str, **kwargs):
     else:
         raise ValueError(f"Network {network_name} not recognized.")
     return cls(**kwargs)
+
+
+def __getattr__(name):
+    # imported at first use: ``import impersonator_tpu_torch.models``
+    # loads no network module
+    if name in _EXPORTS:
+        import importlib
+        module = importlib.import_module(f"{__name__}.{_EXPORTS[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = sorted(_EXPORTS) + ["get_by_name"]

@@ -1,5 +1,5 @@
 """Correspondence flow T and fim encodings (torch port of
-``impersonator_tpu/ops/flow.py:14-88``)."""
+``impersonator_tpu/ops/flow.py``)."""
 
 from __future__ import annotations
 
@@ -65,3 +65,10 @@ def encode_fim(fim, map_fn):
     is the background code -> (B, H, W, C)."""
     nf = map_fn.shape[0] - 1
     return map_fn[torch.where(fim < 0, nf, fim).long()]
+
+
+def masked_identity_and_swap_flows(part_mask_src, t21, identity_grid):
+    """The swapper's flow pair: T11, the identity grid where the source
+    part mask (B, H, W) is set and BG_FLOW elsewhere, and T21 as given."""
+    return (torch.where(part_mask_src[..., None] > 0, identity_grid,
+                        BG_FLOW), t21)

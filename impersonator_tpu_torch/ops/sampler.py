@@ -1,6 +1,6 @@
 """Bilinear warping and resizing with the reference's torch-1.2 semantics
 (``align_corners=True``, zero padding), torch port of
-``impersonator_tpu/ops/sampler.py:18-207``.
+``impersonator_tpu/ops/sampler.py``.
 
 ``grid_sample_patched`` (:69-131) has no port of its own: it is a TPU
 row-gather layout of the same arithmetic as ``grid_sample``, and
@@ -119,3 +119,8 @@ def resize_flow(t: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     out = F.interpolate(t.permute(0, 3, 1, 2), size=(out_h, out_w),
                         mode="bilinear", align_corners=True)
     return out.permute(0, 2, 3, 1)
+
+def warp_feature(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The Liquid Warping Block's warp: x (B, H, W, C) sampled at the
+    flow T (B, Ho, Wo, 2) resized to x's (H, W)."""
+    return grid_sample(x, resize_flow(t, x.shape[1], x.shape[2]))

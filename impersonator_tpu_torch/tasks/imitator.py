@@ -24,8 +24,10 @@ default); feature inputs in the compute dtype, flows float32, outputs
 float32, the source-image warp in the compute dtype; cached source
 features are cast to the compute dtype at the decode; HMR, the DeepFill
 net and the geometry in float32.
-The MaskRCNN detector is not ported (its weights are not in the
-repository), and asking for it raises.
+With ``has_detector`` the task falls back, loudly, to no detector, as
+the JAX package does where Mask R-CNN cannot be built
+(``utils.detectors``); on a mesh (``parallel.mesh``) the Imitator runs
+each frame batch split over the devices.
 """
 
 from __future__ import annotations
@@ -52,8 +54,12 @@ from impersonator_tpu_torch.ops.colorspace import (i420_to_rgb_device,
                                                    rgb_to_i420, rgb_to_u8)
 from impersonator_tpu_torch.ops import smpl as smpl_ops
 from impersonator_tpu_torch.ops.sampler import grid_sample_nchw
+from impersonator_tpu_torch.parallel.mesh import (Mesh, data_devices,
+                                                  to_device)
 from impersonator_tpu_torch.tasks.renderer import SMPLRenderer
 from impersonator_tpu_torch.utils.cv_utils import resize_img_hwc
+from impersonator_tpu_torch.utils.detectors import (MaskRCNNDetector,
+                                                    build_detector)
 
 # Random HMR weights send θ far from any body on screen: the ResNet's
 # features grow to ~10^3 through the identity BatchNorms, and fc3 adds
@@ -258,10 +264,23 @@ def paste_front(renderer: SMPLRenderer, preds, fim, img, mask):
     return (1 - front) * preds + img * front * (1 - mask)
 
 
+@dataclasses.dataclass
+class Replica:
+    """What a task holds on one device of its mesh: the float32 master
+    nets, the compute copy of the generator, the renderer's tables and the
+    SMPL constants."""
+
+    device: torch.device
+    nets: Optional[ImitatorNets]
+    compute_nets: Optional[ImitatorNets]
+    renderer: SMPLRenderer
+    smpl_params: smpl_ops.SMPLParams
+
+
 class Imitator:
     """``personalize`` once, then ``inference_by_smpls`` or ``inference``
     per request, on one device (``device``, default CUDA; there is no CPU
-    fallback).
+    fallback) or on a mesh.
 
     ``nets`` are the float32 master weights, never cast in place;
     ``compute_nets`` holds the generator in the compute dtype, which every
@@ -269,7 +288,30 @@ class Imitator:
     rebuilds it after the master changes). The geometry, HMR and the
     DeepFill net run in full float32 on their own
     (``utils.precision.full_fp32``); the Imitator leaves the process's
-    TF32 flags as it finds them."""
+    TF32 flags as it finds them.
+
+    ``mesh`` (a ``parallel.mesh.Mesh`` with a ``data`` axis; it takes the
+    place of ``device``): the task lives on the mesh's first device, and
+    the first device of every other index along ``data`` (the one at
+    index 0 of each other axis) holds a :class:`Replica` copied from the
+    same master (:meth:`refresh_compute_nets` copies it again). Each
+    frame batch is rounded up to a multiple of the mesh's size, as JAX
+    rounds it, and split into one equal piece per ``data`` index, in
+    order; each of those devices runs the same core on its piece with
+    the source state personalised once and copied to it, and the camera
+    reference of frame 0 of the request; the pieces come back in frame
+    order on the first device (or packed to the host on the streamed
+    path). JAX computes each piece again on every device along the other
+    axes; the port computes it once. Every device's launches of a batch
+    are issued before anything synchronises, so the cards overlap.
+    Without a mesh the same path runs with one replica and one piece.
+
+    ``cfg.has_detector`` asks for Mask R-CNN body masks, which cannot be
+    built here (``utils.detectors``): the fallback is printed and
+    ``detector`` stays None. A detector set on the task (an object with
+    ``inference(img_hwc) -> (bbox, body_mask (1, S, S, 1))``) gives the
+    body mask of each :meth:`personalize`, kept as ``_src_body_mask`` for
+    post-tune's refresh."""
 
     # The Imitator personalises in the compute dtype, as JAX's does; the
     # Swapper and Viewer personalise in float32 with the master (JAX's
@@ -277,12 +319,15 @@ class Imitator:
     source_in_compute_dtype = True
 
     def __init__(self, cfg: TestConfig, assets: SMPLAssets | None = None,
-                 nets: ImitatorNets | None = None, device="cuda"):
-        if cfg.has_detector:
-            raise NotImplementedError(
-                "has_detector needs the MaskRCNN detector, whose weights "
-                "are not in the repository")
+                 nets: ImitatorNets | None = None, device="cuda",
+                 mesh: Mesh | None = None):
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            if "data" not in mesh.axis_names:
+                raise ValueError(f"mesh axes {mesh.axis_names} name no "
+                                 f"'data' axis")
+            device = mesh.device_list[0]
         self.device = torch.device(device)
         self.assets = assets if assets is not None else cfg.assets()
         self.renderer = SMPLRenderer.create(self.assets, self.device,
@@ -300,6 +345,14 @@ class Imitator:
         for net in (self.nets.generator, self.nets.hmr, self.nets.bgnet):
             if net is not None:
                 net.to(device=self.device, dtype=torch.float32).eval()
+        det = build_detector(cfg.has_detector, cfg.bg_ks)
+        self.detector = det if isinstance(det, MaskRCNNDetector) else None
+        self._src_body_mask = None
+        self._other_replicas = [
+            Replica(d, None, None, to_device(self.renderer, d),
+                    to_device(self.smpl_params, d))
+            for d in (data_devices(mesh)[1:] if mesh else ())]
+        self._src_copies = (None, [])
         self.refresh_compute_nets()
         self.src_info = None
         self.first_cam = None
@@ -307,36 +360,82 @@ class Imitator:
     def refresh_compute_nets(self):
         """Rebuild ``compute_nets`` from the float32 master: the master
         itself under float32, else a copy of its generator cast to the
-        compute dtype (HMR and DeepFill stay the master's)."""
+        compute dtype (HMR and DeepFill stay the master's); on a mesh,
+        every other device's replica is copied from both again."""
         if self.compute_dtype == torch.float32:
             self.compute_nets = self.nets
-            return
-        gen = copy.deepcopy(self.nets.generator).to(self.compute_dtype)
-        self.compute_nets = dataclasses.replace(
-            self.nets, generator=gen.requires_grad_(False))
+        else:
+            gen = copy.deepcopy(self.nets.generator).to(self.compute_dtype)
+            self.compute_nets = dataclasses.replace(
+                self.nets, generator=gen.requires_grad_(False))
+        for r in self._other_replicas:
+            r.nets = to_device(self.nets, r.device)
+            r.compute_nets = (r.nets if self.compute_nets is self.nets
+                              else dataclasses.replace(
+                                  r.nets, generator=to_device(
+                                      self.compute_nets.generator,
+                                      r.device)))
+
+    @property
+    def replicas(self) -> list:
+        """One :class:`Replica` per index of the mesh's ``data`` axis, the
+        task's own first; the task's own alone without a mesh."""
+        return [Replica(self.device, self.nets, self.compute_nets,
+                        self.renderer, self.smpl_params),
+                *self._other_replicas]
+
+    def _round_batch(self, batch: int) -> int:
+        """A batch splits evenly over the mesh: round it up to a multiple
+        of the mesh's size."""
+        n = 1 if self.mesh is None else self.mesh.size
+        return -(-batch // n) * n
+
+    def _sources(self, state) -> list:
+        """``state`` on every replica's device (copied once per state)."""
+        if self._src_copies[0] is not state:
+            self._src_copies = (state, [state] + [
+                to_device(state, r.device) for r in self._other_replicas])
+        return self._src_copies[1]
 
     @torch.no_grad()
-    def regress_smpl(self, img224):
+    def regress_smpl(self, img224, rep: Replica | None = None):
         """img224 (B, 224, 224, 3) in [-1, 1], array or tensor -> θ
-        (B, 85) float32 on the Imitator's device."""
-        if self.nets.hmr is None:
+        (B, 85) float32 on the Imitator's device (or ``rep``'s, by its
+        HMR)."""
+        rep = rep or self.replicas[0]
+        if rep.nets.hmr is None:
             raise RuntimeError("the Imitator's nets have no HMR")
         img = torch.as_tensor(img224, dtype=torch.float32,
-                              device=self.device)
-        return self.nets.hmr(img)
+                              device=rep.device)
+        return rep.nets.hmr(img)
 
     def personalize(self, src_img, src_smpl=None):
         """src_img (S, S, 3) float in [-1, 1]; src_smpl (85,) θ, or None
         to regress it with HMR. As in the JAX package, HMR then sees
         ``resize_img_hwc(src_img, 224)``, which maps the [-1, 1] image
-        once more by ``* 2 - 1``, to [-3, 1]."""
-        self.src_info = self._source_state(src_img, src_smpl)
+        once more by ``* 2 - 1``, to [-3, 1]. With a detector, its body
+        mask takes the place of the eroded silhouette for the background,
+        and is kept for post-tune's refresh."""
+        self._src_body_mask = self._detect(src_img)
+        self.src_info = self._source_state(src_img, src_smpl,
+                                           self._src_body_mask)
         return self.src_info
 
-    def _source_state(self, src_img, src_smpl=None):
+    def _detect(self, src_img):
+        """The detector's body mask (1, S, S, 1) of src_img on the device,
+        or None without a detector."""
+        if self.detector is None:
+            return None
+        img = (src_img.detach().cpu().numpy() if torch.is_tensor(src_img)
+               else np.asarray(src_img, np.float32))
+        _, body_mask = self.detector.inference(img)
+        return torch.as_tensor(np.asarray(body_mask), dtype=torch.float32,
+                               device=self.device)
+
+    def _source_state(self, src_img, src_smpl=None, body_mask=None):
         """The personalised state of one source image (see
-        :meth:`personalize`; image and θ as arrays or tensors), which the
-        Imitator does not keep."""
+        :meth:`personalize`; image and θ as arrays or tensors; body_mask a
+        detector's, or None), which the Imitator does not keep."""
         img = torch.as_tensor(src_img, dtype=torch.float32,
                               device=self.device)[None]
         if src_smpl is None:
@@ -351,7 +450,8 @@ class Imitator:
         return personalize_core(
             nets, self.renderer, self.smpl_params, self.parents, img,
             theta, bg_ks=self.cfg.bg_ks, ft_ks=self.cfg.ft_ks,
-            only_vis=self.cfg.only_vis, compute_dtype=dtype)
+            only_vis=self.cfg.only_vis, compute_dtype=dtype,
+            ext_body_mask=body_mask)
 
     def _batches(self, frames, batch: int):
         """Frames (N, ...) array or tensor -> float32 batches of ``batch``
@@ -363,9 +463,11 @@ class Imitator:
             x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
         return n, [x[i:i + batch] for i in range(0, n + pad, batch)]
 
-    def _imitate(self, src_state, tgt_smpls, first_cam, cam_strategy):
+    def _imitate(self, src_state, tgt_smpls, first_cam, cam_strategy,
+                 rep: Replica | None = None):
+        rep = rep or self.replicas[0]
         return imitate_with_swap_core(
-            self.compute_nets, self.renderer, self.smpl_params, self.parents,
+            rep.compute_nets, rep.renderer, rep.smpl_params, self.parents,
             src_state, tgt_smpls, first_cam, cam_strategy,
             self.cfg.front_warp, self.compute_dtype)
 
@@ -373,11 +475,32 @@ class Imitator:
         """Imitation of src_state driven by tgt_smpls (N, 85) in
         fixed-size batches (the last one padded with its final pose); the
         first θ's camera is the reference of ``smooth``."""
-        n, chunks = self._batches(tgt_smpls, batch)
+        n, chunks = self._batches(tgt_smpls, self._round_batch(batch))
         self.first_cam = chunks[0][0:1, 0:3]
-        outs = [self._imitate(src_state, c, self.first_cam, cam_strategy)
-                for c in chunks]
-        return torch.cat(outs)[:n]
+        return self._sharded(src_state, chunks, cam_strategy)[:n]
+
+    def _sharded(self, src_state, chunks, cam_strategy, hmr: bool = False):
+        """Each batch of ``chunks`` (θs, or with ``hmr`` 224² images that
+        each replica's HMR turns into θs) split into one piece per
+        replica, each piece imitated by its replica from its copy of
+        src_state; ``first_cam`` (already set, or with ``hmr`` frame 0's
+        θ) copied to every replica. -> every frame's preds, in order, on
+        the first device."""
+        reps, srcs = self.replicas, self._sources(src_state)
+        cams = None if hmr else [self.first_cam.to(r.device) for r in reps]
+        outs = []
+        for chunk in chunks:
+            pieces = [p.to(r.device) for r, p in zip(
+                reps, chunk.split(chunk.shape[0] // len(reps)))]
+            if hmr:
+                pieces = [self.regress_smpl(p, r) for r, p in zip(reps,
+                                                                  pieces)]
+                if cams is None:
+                    self.first_cam = pieces[0][0:1, 0:3]
+                    cams = [self.first_cam.to(r.device) for r in reps]
+            outs += [self._imitate(s, p, c, cam_strategy, r)
+                     for r, s, p, c in zip(reps, srcs, pieces, cams)]
+        return torch.cat([o.to(self.device) for o in outs])
 
     def _require_source(self):
         if self.src_info is None:
@@ -399,31 +522,27 @@ class Imitator:
         first batch's first θ gives the camera reference, and the last
         batch is padded with its final image."""
         self._require_source()
-        n, chunks = self._batches(tgt_imgs224, batch)
-        outs = []
-        self.first_cam = None
-        for chunk in chunks:
-            thetas = self.regress_smpl(chunk)
-            if self.first_cam is None:
-                self.first_cam = thetas[0:1, 0:3]
-            outs.append(self._imitate(self.src_info, thetas, self.first_cam,
-                                      cam_strategy))
-        return torch.cat(outs)[:n]
+        n, chunks = self._batches(tgt_imgs224, self._round_batch(batch))
+        return self._sharded(self.src_info, chunks, cam_strategy,
+                             hmr=True)[:n]
 
     @torch.no_grad()
-    def regress_smpl_u8(self, u8):
+    def regress_smpl_u8(self, u8, rep: Replica | None = None):
         """uint8 RGB (B, 224, 224, 3), array or tensor -> θ (B, 85): the
-        [-1, 1] normalise ``u8 / 127.5 - 1`` runs on the device."""
-        x = torch.as_tensor(u8, device=self.device)
-        return self.regress_smpl(x.float() / 127.5 - 1.0)
+        [-1, 1] normalise ``u8 / 127.5 - 1`` runs on the device (``rep``'s
+        when given)."""
+        rep = rep or self.replicas[0]
+        x = torch.as_tensor(u8, device=rep.device)
+        return self.regress_smpl(x.float() / 127.5 - 1.0, rep)
 
     @torch.no_grad()
-    def regress_smpl_i420(self, packed):
+    def regress_smpl_i420(self, packed, rep: Replica | None = None):
         """Packed I420 (B, 336, 224) uint8 -> θ (B, 85): the BT.601
         inverse runs on the device (:func:`..ops.colorspace.
-        i420_to_rgb_device`)."""
-        x = torch.as_tensor(packed, device=self.device)
-        return self.regress_smpl(i420_to_rgb_device(x))
+        i420_to_rgb_device`; ``rep``'s when given)."""
+        rep = rep or self.replicas[0]
+        x = torch.as_tensor(packed, device=rep.device)
+        return self.regress_smpl(i420_to_rgb_device(x), rep)
 
     def inference_from_paths(self, paths, cam_strategy: str = "smooth",
                              batch: int = 8, as_uint8: bool = False,
@@ -440,6 +559,7 @@ class Imitator:
         paths = list(paths)
         if not paths:
             raise ValueError("no frames to imitate")
+        batch = self._round_batch(batch)
         n = len(paths)
         all_paths = paths + [paths[-1]] * ((-n) % batch)
 
@@ -475,6 +595,7 @@ class Imitator:
         padded with its last frame and the pad dropped."""
         self._require_source()
         from impersonator_tpu_torch.utils.video import stream_i420
+        batch = self._round_batch(batch)
         counter = {"n": 0}
 
         def batches():
@@ -493,15 +614,16 @@ class Imitator:
                                  cam_strategy, as_uint8, as_i420)
         return out[:counter["n"]]
 
-    def _upload(self, chunk, stream):
-        """A host batch -> the device: from pinned memory on ``stream``
+    @staticmethod
+    def _upload(chunk, stream, device):
+        """A host batch -> ``device``: from pinned memory on ``stream``
         (the compute stream waits for it), or as it is on the CPU."""
         host = torch.from_numpy(np.ascontiguousarray(chunk))
         if stream is None:
-            return host.to(self.device)
+            return host.to(device)
         with torch.cuda.stream(stream):
-            x = host.pin_memory().to(self.device, non_blocking=True)
-        compute = torch.cuda.current_stream(self.device)
+            x = host.pin_memory().to(device, non_blocking=True)
+        compute = torch.cuda.current_stream(device)
         compute.wait_stream(stream)
         x.record_stream(compute)
         return x
@@ -536,36 +658,47 @@ class Imitator:
         and each batch's readback goes into pinned host memory on a copy
         stream, drained by a thread, so batch k transfers while batch k+1
         decodes and computes; the result is then a host array (N, ...),
-        else a device tensor. On CUDA, uploads and readbacks run on two
-        side streams of their own. ``n`` None keeps every frame. An empty
-        stream raises ValueError."""
+        else a device tensor (on the first device of a mesh). On CUDA,
+        uploads and readbacks run on two side streams of their own on each
+        device. ``hmr_fn(x, replica)`` regresses a batch on a replica; each
+        host batch splits into one piece per replica, and the camera
+        reference is frame 0's. ``n`` None keeps every frame. An
+        empty stream raises ValueError."""
         pack = rgb_to_i420 if as_i420 else rgb_to_u8 if as_uint8 else None
         cuda = self.device.type == "cuda"
-        up_stream = torch.cuda.Stream(self.device) if cuda else None
-        down_stream = torch.cuda.Stream(self.device) if cuda else None
+        reps = self.replicas
+        up_streams = [torch.cuda.Stream(r.device) if cuda else None
+                      for r in reps]
+        down_streams = [torch.cuda.Stream(r.device) if cuda else None
+                        for r in reps]
         drain = ThreadPoolExecutor(1) if pack is not None and cuda else None
+        srcs = self._sources(self.src_info)
         outs = []
+        cams = None
         self.first_cam = None
         try:
             for chunk in chunks:
-                thetas = hmr_fn(self._upload(chunk, up_stream))
-                if self.first_cam is None:
-                    self.first_cam = thetas[0:1, 0:3]
-                pred = self._imitate(self.src_info, thetas, self.first_cam,
-                                     cam_strategy)
-                if pack is None:
-                    outs.append(pred)
-                elif cuda:
-                    outs.append(drain.submit(
-                        self._drain, *self._readback(pack(pred),
-                                                     down_stream)))
-                else:
-                    outs.append(pack(pred).numpy())
+                pieces = np.split(chunk, len(reps))
+                thetas = [hmr_fn(self._upload(p, up, r.device), r)
+                          for r, p, up in zip(reps, pieces, up_streams)]
+                if cams is None:
+                    self.first_cam = thetas[0][0:1, 0:3]
+                    cams = [self.first_cam.to(r.device) for r in reps]
+                for r, s, th, c, down in zip(reps, srcs, thetas, cams,
+                                             down_streams):
+                    pred = self._imitate(s, th, c, cam_strategy, r)
+                    if pack is None:
+                        outs.append(pred)
+                    elif cuda:
+                        outs.append(drain.submit(
+                            self._drain, *self._readback(pack(pred), down)))
+                    else:
+                        outs.append(pack(pred).numpy())
             if not outs:
                 raise ValueError("stream produced no frames (unreadable "
                                  "or empty video?)")
             if pack is None:
-                out = torch.cat(outs)
+                out = torch.cat([o.to(self.device) for o in outs])
             else:
                 out = np.concatenate([o.result() if drain is not None
                                       else o for o in outs])

@@ -259,8 +259,10 @@ def adaptive_personalize(imit, prior_smpls=None, prior_poses_path=None,
             print(f"post_tune epoch {epoch}: " + " ".join(
                 f"{k}={float(v):.4f}" for k, v in metrics.items()))
     _finish(imit)
+    # the detector's mask of the first personalisation, if there was one
     imit.src_info = imit._source_state(imit.src_info["img"][0],
-                                       imit.src_info["theta"][0])
+                                       imit.src_info["theta"][0],
+                                       imit._src_body_mask)
     out = {k: float(v) for k, v in metrics.items()}
     out["cyc_history"] = cyc_history
     out["n_steps"] = n_steps

@@ -105,8 +105,9 @@ class Swapper(Imitator):
     def personalize(self, img, smpl=None):
         """img (S, S, 3) in [-1, 1]; smpl (85,) θ, or None for HMR's ->
         the personalised state with its ``par`` encoding (kept by
-        :meth:`swap_setup`, not here)."""
-        state = self._source_state(img, smpl)
+        :meth:`swap_setup`, not here). With a detector, its body mask
+        takes the place of the eroded silhouette for the background."""
+        state = self._source_state(img, smpl, self._detect(img))
         state["part"] = self.renderer.encode_fim(state["fim"], self.part_fn)
         return state
 

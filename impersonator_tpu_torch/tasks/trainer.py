@@ -37,6 +37,7 @@ from functools import partial
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
@@ -53,6 +54,7 @@ from impersonator_tpu_torch.ops import morphology
 from impersonator_tpu_torch.ops import smpl as smpl_ops
 from impersonator_tpu_torch.ops.sampler import (grid_sample_nchw,
                                                 resize_bilinear_align)
+from impersonator_tpu_torch.parallel.distributed import all_reduce_mean_
 from impersonator_tpu_torch.tasks.renderer import SMPLRenderer
 
 
@@ -374,24 +376,37 @@ def _apply(opt, params, grads):
     opt.step()
 
 
-def step_nets(state: TrainState, g_loss, d_loss_fn=None) -> dict:
+def step_nets(state: TrainState, g_loss, d_loss_fn=None,
+              metrics=None) -> dict:
     """One update of both nets, in place: G's gradient of ``g_loss`` over
     G's parameters; then, with ``d_loss_fn`` (called only now, after G's
     graph is freed; it returns (loss, metrics)), D's gradient of its
     loss; then Adam on G and on D. Each updated parameter keeps its
-    gradient in ``.grad``. Returns D's metrics ({} without D)."""
+    gradient in ``.grad``. Under a process group the gradients, and the
+    step's metrics, are first averaged over the processes
+    (``parallel.distributed.all_reduce_mean_``): each process holds an
+    equal shard of the global batch and every loss term is a mean over
+    samples, so that mean is the global batch's gradient. Returns
+    ``metrics`` (G's, as given) updated with D's."""
+    metrics = dict(metrics or {})
     g_params = list(state.generator.parameters())
     g_grads = _grads(g_loss, g_params)
-    d_metrics = {}
+    d_grads = ()
     if d_loss_fn is not None:
         d_params = list(state.discriminator.parameters())
         d_loss, d_metrics = d_loss_fn()
         d_grads = _grads(d_loss, d_params)
+        metrics.update(d_metrics)
+    if dist.is_initialized():
+        names = sorted(metrics)
+        values = torch.stack([metrics[k].float() for k in names])
+        all_reduce_mean_([*g_grads, *d_grads, values])
+        metrics.update(zip(names, values.unbind()))
     _apply(state.g_opt, g_params, g_grads)
     if d_loss_fn is not None:
         _apply(state.d_opt, d_params, d_grads)
     state.step += 1
-    return d_metrics
+    return metrics
 
 
 def _inputs(trainer, batch):
@@ -416,8 +431,7 @@ def make_update(trainer: Trainer, train_d: bool = True):
             state.generator, state.discriminator, inputs, src_img, tsf_img)
         d_fn = (partial(d_loss_fn, state.discriminator, fake_tsf, tsf_img,
                         inputs["input_G_tsf"][:, 3:]) if train_d else None)
-        metrics.update(step_nets(state, g_loss, d_fn))
-        return state, metrics
+        return state, step_nets(state, g_loss, d_fn, metrics)
 
     return update
 

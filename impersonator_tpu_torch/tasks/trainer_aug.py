@@ -189,8 +189,7 @@ def make_aug_update(trainer: Trainer, train_d: bool = True):
         d_fn = (partial(d_loss_fn, state.discriminator, fake_aug_bg,
                         fake_tsf, real_bg, tsf_img, inputs)
                 if train_d else None)
-        metrics.update(step_nets(state, g_loss, d_fn))
-        return state, metrics
+        return state, step_nets(state, g_loss, d_fn, metrics)
 
     return update
 

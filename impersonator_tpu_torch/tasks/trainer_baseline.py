@@ -213,7 +213,6 @@ def make_train_step(trainer: BaselineTrainer, train_d: bool = True):
             state.generator, state.discriminator, inputs, tsf_img)
         d_fn = (partial(d_loss_fn, state.discriminator, inputs, fake_tsf,
                         tsf_img) if train_d else None)
-        metrics.update(step_nets(state, g_loss, d_fn))
-        return state, metrics
+        return state, step_nets(state, g_loss, d_fn, metrics)
 
     return train_step

@@ -59,7 +59,7 @@ class Viewer(Imitator):
     """``personalize`` once (it keeps the source's vertices), then
     ``view``, ``view_sweep`` or ``view_by_smpls``. On one device
     (``device``, default CUDA; no CPU fallback). Personalises in float32
-    with the master."""
+    with the master, and with no detector's mask, as JAX's Viewer."""
 
     source_in_compute_dtype = False
 

@@ -161,6 +161,13 @@ PORT_MODULES = [
     "impersonator_tpu_torch.metrics.mtcnn",
     "impersonator_tpu_torch.metrics.yolo",
     "impersonator_tpu_torch.cli.evaluate",
+    "impersonator_tpu_torch.parallel",
+    "impersonator_tpu_torch.parallel.mesh",
+    "impersonator_tpu_torch.parallel.distributed",
+    "impersonator_tpu_torch.utils.detectors",
+    "impersonator_tpu_torch.ops",
+    "impersonator_tpu_torch.tasks",
+    "impersonator_tpu_torch.data",
 ]
 
 

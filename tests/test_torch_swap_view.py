@@ -532,9 +532,3 @@ def test_factory_trainers_wait_for_the_training_slice(name):
         from impersonator_tpu_torch.tasks.trainer_baseline import \
             BaselineTrainer
         assert isinstance(tr, BaselineTrainer) and tr.mode == "concat"
-
-
-def test_detector_is_refused():
-    with pytest.raises(NotImplementedError, match="MaskRCNN"):
-        TI.Imitator(_tcfg(has_detector=True),
-                    assets=tassets.synthetic_assets(), device="cpu")
