@@ -175,12 +175,18 @@ Phases, each failing the run (exit 1) on any error:
    (scenes.face_image), frames/s, the same boxes on both devices within
    EVAL_BOX_PX; cli.evaluate.main on an iPER tree of 2 videos × 16 JPEG
    frames of 256² from the card's encoder with θ pickles (self- and
-   cross-imitation, bf16, LPIPS on the repository's heads): wall
-   seconds, frames/s, launches exactly rows 2 / flow 8, results.txt and
-   results.json; then the same command in float32 (TF32 off) on one
-   video at --max_frames 4, on the card (rows 1 / flow 2) and on the CPU
-   (reading the frames through the card's decoder: the card's host has
-   no libjpeg), results.json within EVAL_BOUNDS;
+   cross-imitation, bf16) with every extractor: LPIPS on the
+   repository's heads, MTCNN on its weights, and the seeded InceptionV3,
+   InceptionResnetV1, SENet50, Sphere20a, OSNet and PCB above written
+   here as the JAX package's msgpack files by utils.convert.TO_JAX and
+   utils.checkpoint.write_flax_msgpack (each read back bit-equal), a
+   seeded darknet graph (YOLO_CFG) and --sspe: wall seconds, frames/s,
+   launches exactly rows 2 / flow 8, every self- and cross-imitation
+   key finite, results.txt and results.json; then the same command in
+   float32 (TF32 off) on one video at --max_frames 4, on the card (rows
+   1 / flow 2) and on the CPU (reading the frames through the card's
+   decoder: the card's host has no libjpeg), every key of results.json
+   (self_imitation, cross_imitation, per_video) within eval_gap's bound;
 15. the multi-card code paths on the one card (float32, TF32 off, cuDNN
    deterministic, at phase 11's point: 256², batch 16, a 4-layer
    PatchGAN, VGG19 + Sphere20a): (a) the train step twice without a
@@ -216,6 +222,30 @@ Phases, each failing the run (exit 1) on any error:
    system time on the H100's host against 89.5 and 81.8 s without phase
    15 (9: 19.5 against 45.4 s; 5: 11.8 against 30.4), with the same
    threads, flags and results;
+16. the repository's tools on the port (impersonator_tpu_torch/tools), each
+   a subprocess on the card (TOOL_LAUNCHER: the module run as by python
+   -m, its process's launch counts printed last), all started together,
+   on seeded inputs (tool_inputs: 16 smooth 256² PNG frames, their θs,
+   the bench body written as an SMPL pickle + UV OBJ, released-layout HMR
+   and full-width generator .pth files): convert_weights gen (the bytes
+   of a second write of the same tree, read back bit-equal);
+   make_prior_poses at batch 16 (θ against the CPU within FEAT_RTOL of
+   the largest); visual_iper at batch 16 (rows 1; the card's fim equal
+   to the plain twin's, the tool's triptychs equal to the card's renders;
+   on the CPU's geometry of 2 frames fim equal to the CPU's, the render
+   within TEX_TOL); parity_harness in bf16 and in float32 (rows 1 / flow
+   2 each; the float32 JSON of the first batch of 8 frames against the
+   CPU's within EVAL_BOUNDS, the CPU run on a thread beside the
+   subprocesses); posttune_artifact and trainconv_artifact on the bench
+   body with the full nets at 256² with TOOL_POSTTUNE / TOOL_TRAINCONV's
+   fewer epochs (finite JSON; rows 6 / flow 5 and rows 8 / flow 6) and
+   their recipes' first step card vs CPU at 128² on the tools' default
+   body and nets (TUNE_LOSS_RTOL; made, with the prior-pose and visual
+   checks, while the tools run);
+   prepare_iper on a seeded mp4 where the host has ffmpeg (else a line
+   saying it did not run); then run_imitator --post_tune --prior_poses
+   on make_prior_poses' pickle, the bench body (rows 3 / flow 2). Phase
+   16 runs after 15, so its CPU work also finds phase 15's grown heap;
 9. float32 with TF32 off, card against CPU on the same weights:
    swap_core on the card from the CPU's two states (preds within 1e-2),
    the flow kernel on the CPU's rotated meshes (fim equal to the twin's,
@@ -229,11 +259,11 @@ Phases, each failing the run (exit 1) on any error:
    wall time, the largest kernels and the z-buffer kernels' mean device
    time per launch (full tables in chiprun_out/profile_*.txt).
 
-Phases run in the order 1-4b, 7, 8, 8b, 10, 11, 12, 13, 14, 15, 9, 5,
+Phases run in the order 1-4b, 7, 8, 8b, 10, 11, 12, 13, 14, 15, 16, 9, 5,
 5b, 6. Each path (3c, 4, 4b, 7, 8, 8b, 10, 11's bf16, float32 and CLI
 runs, 12's streamed requests and /imitate, 13's trainers and CLI runs,
 14's cli.evaluate runs, 15's steps, mesh requests and data-parallel
-CLIs) runs
+CLIs, 16's tool subprocesses) runs
 with every launch count set to 0 just before it and read just after,
 and fails if a kernel of the path never launched; the record's
 launches_by_path holds each path's counts ("train", "train_fp32",
@@ -245,7 +275,8 @@ launches_by_path holds each path's counts ("train", "train_fp32",
 "evaluate_cli_fp32" for phase 14; "train_group_of_one",
 "train_two_ranks" (both ranks' counts, read in each rank's process),
 "mesh_personalize", "mesh_inference_by_smpls", "mesh_inference",
-"run_imitator_dp" and "serve_imitate_dp" for phase 15). The seconds of
+"run_imitator_dp" and "serve_imitate_dp" for phase 15; "tool_<name>"
+for each tool of phase 16 and "tool_run_imitator_post_tune"). The seconds of
 each phase
 and the whole script's wall time are printed before the record. The line before the
 last is nvidia-smi's name and power limit, the one before it the kernels' JSON record (with each kernel's
@@ -324,6 +355,31 @@ TEX_TOL, SIL_TOL, SIL_GRAD_RTOL = 1e-5, 1e-5, 1e-3
 # on results.json: tests/test_torch_evaluate.py's BOUNDS
 EVAL_NET_RTOL, EVAL_FID_RTOL, EVAL_BOX_PX = 1e-4, 1e-3, 0.5
 EVAL_BOUNDS = {"ssim": 1e-5, "psnr": 1e-4, "lps": 1e-5}
+# with every extractor, the other keys' bounds, each about 3x the largest
+# gap of five runs on the H100 (NVIDIA H100 80GB HBM3, 700 W; readings
+# beside each): SSPE (HMR θ distances, full float32; 2.912e-7), the
+# matched cosines (float64 means of float32 embeddings; face-CS
+# 1.646e-10, OS-CS-reid 1.271e-9, PCB-CS-reid 1.069e-8) and IS, absolute.
+# IS read 0 in all five: its seeded nets' probabilities are equal over
+# the 4 frames to float32 rounding on both devices, so IS is exactly 1;
+# a gap δ in them moves it by ~δ² (KL's second order), and 1e-9 is ~100
+# times the square of the probabilities' own card-vs-CPU gap (3e-6)
+EVAL_CARD_BOUNDS = {"SSPE": 1e-6, "face-CS": 5e-10, "OS-CS-reid": 4e-9,
+                    "PCB-CS-reid": 3e-8, "is": 1e-9}
+# the Fréchet distances (float64 on the host from the embeddings' means
+# and covariances) relative to the size of the terms they cancel, |mu1 -
+# mu2|² + Tr(S1 + eps) + Tr(S2 + eps), of the CPU run (eval_terms): a
+# distance between two nearly equal sets of seeded-net embeddings is a
+# residue near -2·D·eps (the regularised square root's eps, not the
+# traces'), so relative to itself or to 1 it means nothing. Readings of
+# five runs, the largest: fid 4.566e-6 (terms 6.229), OS-freid 1.71e-7
+# (1.222e-3), PCB-freid 9.33e-8 (0.2141), face-FD 4.88e-8 (1.052e-3)
+EVAL_FD_RTOL = {"fid": 1.5e-5, "OS-freid": 5e-7, "PCB-freid": 3e-7,
+                "face-FD": 1.5e-7}
+EVAL_FD_KEYS = tuple(EVAL_FD_RTOL)
+EVAL_SELF_KEYS = ["ssim", "psnr", "lps", "face-CS", "OS-CS-reid", "SSPE"]
+EVAL_CROSS_KEYS = ["is", "fid", "OS-freid", "OS-CS-reid", "PCB-freid",
+                   "PCB-CS-reid", "face-FD", "face-CS"]
 EVAL_VIDEOS, EVAL_FRAMES, EVAL_IMAGES = 2, 16, 64
 EVAL_MTCNN = (16, 256)          # MTCNN's frames and their size
 # phase 15: the phase-11 point (batch MC_BATCH, its samples from seed
@@ -2362,7 +2418,11 @@ def metric_nets_checks(dev, tag):
               f"{gap:.3e} (bound {EVAL_NET_RTOL}); "
               f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
         check(gap <= EVAL_NET_RTOL, f"{name} card vs CPU {gap}")
-    return {"lpips_pairs_s": pairs_s, "inception_images_s": inc_s, **rates}
+    seeded = {"inception": inc_c, "facenet_ir": nets["InceptionResnetV1"][1],
+              "senet50": nets["SENet50"][1], "sphere": nets["Sphere20a"][1],
+              "osnet": nets["OSNet"][1], "pcb": nets["PCB"][1]}
+    return ({"lpips_pairs_s": pairs_s, "inception_images_s": inc_s,
+             **rates}, seeded)
 
 
 def mtcnn_checks(dev, tag):
@@ -2443,6 +2503,172 @@ def write_eval_tree(root, native, dev):
     return path
 
 
+# a small darknet graph of every layer kind metrics/yolo.py builds (convs
+# with and without BatchNorm, both maxpools, a shortcut, routes, an
+# upsample, two YOLO heads over 4 classes, class 0 a person); its seeded
+# weights stand in for yolov3-spp's, which the repository does not hold
+YOLO_CFG = """[net]
+width=256
+height=256
+channels=3
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[shortcut]
+from=-2
+activation=linear
+
+[convolutional]
+batch_normalize=1
+filters=32
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=32
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=1
+
+[maxpool]
+size=5
+stride=1
+
+[route]
+layers=-1,-2
+
+[convolutional]
+filters=27
+size=1
+stride=1
+pad=1
+activation=linear
+
+[yolo]
+mask=0,1,2
+anchors=10,14, 23,27, 37,58, 81,82, 135,169, 344,319
+classes=4
+
+[route]
+layers=3
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=1
+stride=1
+pad=1
+activation=leaky
+
+[upsample]
+stride=2
+
+[convolutional]
+filters=27
+size=1
+stride=1
+pad=1
+activation=linear
+
+[yolo]
+mask=3,4,5
+anchors=10,14, 23,27, 37,58, 81,82, 135,169, 344,319
+classes=4
+"""
+
+
+def write_yolo(root, seed=49):
+    """YOLO_CFG and a seeded darknet .weights file for it (the header of
+    five int32, then per conv its BatchNorm bias, scale, mean, variance
+    or its bias, then the OIHW kernel, float32)."""
+    import numpy as np
+    from impersonator_tpu_torch.metrics import yolo
+    cfg = root / "yolo.cfg"
+    cfg.write_text(YOLO_CFG)
+    rng = np.random.default_rng(seed)
+    chunks = []
+    for ld in yolo.build_layers(yolo.parse_darknet_cfg(str(cfg))):
+        if ld["type"] != "convolutional":
+            continue
+        co, ci, k = ld["filters"], ld["in_ch"], ld["size"]
+        if ld["bn"]:
+            chunks += [rng.normal(0, 0.1, co), rng.uniform(0.5, 1.5, co),
+                       rng.normal(0, 0.1, co), rng.uniform(0.5, 1.5, co)]
+        else:
+            chunks.append(rng.normal(0, 0.1, co))
+        chunks.append(rng.standard_normal(co * ci * k * k)
+                      / np.sqrt(ci * k * k))
+    weights = root / "yolo.weights"
+    with open(weights, "wb") as f:
+        np.zeros(5, np.int32).tofile(f)
+        np.concatenate(chunks).astype(np.float32).tofile(f)
+    return str(cfg), str(weights)
+
+
+def write_eval_weights(root, seeded, tag):
+    """The evaluator's weight files of phase 14's seeded nets, written on
+    this host without flax: each net's state dict (the reference's keys)
+    through utils.convert.TO_JAX and utils.checkpoint.write_flax_msgpack;
+    read back by read_flax_msgpack + FROM_JAX equal to the net bit for
+    bit, and a second write the same bytes. Plus write_yolo's pair.
+    Returns {flag: path}."""
+    import torch
+    from impersonator_tpu_torch.utils import convert as C
+    from impersonator_tpu_torch.utils.checkpoint import (flax_msgpack_bytes,
+                                                         read_flax_msgpack,
+                                                         write_flax_msgpack)
+    t0 = time.perf_counter()
+    flags = {"inception": "--inception_path", "facenet_ir": "--facenet_path",
+             "senet50": "--senet_path", "sphere": "--sphere_path",
+             "osnet": "--osnet_path", "pcb": "--pcb_path"}
+    out, sizes = {}, {}
+    for kind, net in seeded.items():
+        sd = net.state_dict()
+        tree = C.TO_JAX[kind](sd)
+        path = write_flax_msgpack(tree, str(root / f"{kind}.msgpack"))
+        data = Path(path).read_bytes()
+        check(flax_msgpack_bytes(tree) == data, f"{kind}: two writes differ")
+        back = C.FROM_JAX[kind](read_flax_msgpack(path))
+        check(all(torch.equal(back[k], v) for k, v in sd.items()
+                  if not k.endswith("num_batches_tracked")),
+              f"{kind}: the file does not read back to the net")
+        out[flags[kind]] = path
+        sizes[kind] = len(data)
+    out["--yolo_cfg"], out["--yolo_weights"] = write_yolo(root)
+    print(f"evaluator weight files written on this host (TO_JAX + "
+          f"write_flax_msgpack, each read back bit-equal): "
+          f"{ {k: f'{v / 2**20:.1f} MiB' for k, v in sizes.items()} }, a "
+          f"seeded darknet graph for --yolo_cfg / --yolo_weights; "
+          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    return out
+
+
 @contextlib.contextmanager
 def card_decoder_for_cpu(native):
     """The card's host has no libjpeg, so the codec's CPU build cannot be
@@ -2463,13 +2689,50 @@ def card_decoder_for_cpu(native):
         native.load = load
 
 
-def evaluate_cli_checks(cr, native, dev, tag):
+def eval_gap(key, got, want, terms):
+    """cli.evaluate's card-vs-CPU gap of one results.json key, as
+    EVAL_BOUNDS, EVAL_CARD_BOUNDS and EVAL_FD_RTOL bound it (a distance's
+    gap over ``terms[want]``, its CPU terms); (gap, bound)."""
+    if key in EVAL_FD_KEYS:
+        return abs(got - want) / terms[want], EVAL_FD_RTOL[key]
+    return abs(got - want), {**EVAL_BOUNDS, **EVAL_CARD_BOUNDS}[key]
+
+
+@contextlib.contextmanager
+def eval_terms():
+    """Inside the block each Fréchet distance the unpaired metrics take
+    records the size of its terms, |mu1 - mu2|² + Tr(S1 + eps) + Tr(S2 +
+    eps) (frechet_distance_of's eps), under its value: {distance:
+    terms}."""
+    import numpy as np
+    from impersonator_tpu_torch.metrics.unpaired import UnpairedMetricRunner
+    fd, terms, eps = UnpairedMetricRunner._fd, {}, 1e-6
+
+    def fd_terms(pred, ref):
+        v = fd(pred, ref)
+        p, r = np.asarray(pred, np.float64), np.asarray(ref, np.float64)
+        terms[v] = float(np.sum((p.mean(0) - r.mean(0)) ** 2)
+                         + np.var(p, 0, ddof=1).sum()
+                         + np.var(r, 0, ddof=1).sum() + 2 * p.shape[1] * eps)
+        return v
+
+    UnpairedMetricRunner._fd = staticmethod(fd_terms)
+    try:
+        yield terms
+    finally:
+        UnpairedMetricRunner._fd = staticmethod(fd)
+
+
+def evaluate_cli_checks(cr, native, dev, tag, weights):
     """cli.evaluate.main on the card on write_eval_tree's tree (256²,
-    conv_dim 64, 6 res blocks, bf16, LPIPS on the repository's lin heads):
-    wall seconds, evaluated frames/s, exact launch counts; then the same
+    conv_dim 64, 6 res blocks, bf16) with every extractor: LPIPS on the
+    repository's lin heads, MTCNN on its weights, ``weights``' InceptionV3,
+    InceptionResnetV1 (the face net; SENet50 and Sphere20a are its
+    fallbacks, also passed), OSNet, PCB and YOLO files, and --sspe: wall
+    seconds, evaluated frames/s, exact launch counts; then the same
     command in float32 with TF32 off, one video and --max_frames 4 on the
-    card and on the CPU (card_decoder_for_cpu), results.json within
-    EVAL_BOUNDS.
+    card and on the CPU (card_decoder_for_cpu), every key of results.json
+    (self_imitation, cross_imitation, per_video) within eval_gap's bound.
     Returns ({path: launch counts}, wall seconds, frames evaluated)."""
     import os
     import tempfile
@@ -2485,7 +2748,9 @@ def evaluate_cli_checks(cr, native, dev, tag):
         base = ["--data_dir", tmp, "--protocol_file", proto,
                 "--lpips_path", ev.REAL_LPIPS_LIN, "--image_size",
                 str(GEOM["s"]), "--checkpoints_dir",
-                os.path.join(tmp, "ckpt"), "--name", "eval"]
+                os.path.join(tmp, "ckpt"), "--name", "eval",
+                "--mtcnn_path", ev.REAL_MTCNN, "--sspe",
+                *[a for kv in weights.items() for a in kv]]
         out = os.path.join(tmp, "out")
         reset_counts(cr)
         t0 = time.perf_counter()
@@ -2503,9 +2768,12 @@ def evaluate_cli_checks(cr, native, dev, tag):
               f"cli.evaluate launches {launches}")
         on_disk = json.loads(Path(out, "results.json").read_text())
         check(on_disk["self_imitation"] == res["self_imitation"] and
-              list(res["self_imitation"]) == ["ssim", "psnr", "lps"] and
-              all(np.isfinite(v) for v in res["self_imitation"].values()),
-              f"results {res['self_imitation']}")
+              list(res["self_imitation"]) == EVAL_SELF_KEYS and
+              sorted(res["cross_imitation"]) == sorted(EVAL_CROSS_KEYS) and
+              all(np.isfinite(v) for part in ("self_imitation",
+                                              "cross_imitation")
+                  for v in res[part].values()),
+              f"results {res['self_imitation']} {res['cross_imitation']}")
         check("Self-imitation Results" in Path(out, "results.txt")
               .read_text(), "results.txt")
         print(f"cli.evaluate (bf16, {EVAL_VIDEOS} videos x {EVAL_FRAMES} "
@@ -2513,6 +2781,8 @@ def evaluate_cli_checks(cr, native, dev, tag):
               f"set-up, {n} frames evaluated, {n / wall:.1f} frames/s, "
               f"{wall / EVAL_VIDEOS:.2f} s a video; self-imitation "
               f"{ {k: round(v, 5) for k, v in res['self_imitation'].items()} }"
+              f", cross-imitation "
+              f"{ {k: round(v, 5) for k, v in res['cross_imitation'].items()} }"
               f"; launches {launches} {tag}", flush=True)
 
         cmp = base + ["--compute_dtype", "float32", "--max_videos", "1",
@@ -2526,7 +2796,7 @@ def evaluate_cli_checks(cr, native, dev, tag):
                                "--device", dev.type])
         launches_32 = read_counts(cr)
         t0 = time.perf_counter()
-        with card_decoder_for_cpu(native):
+        with card_decoder_for_cpu(native), eval_terms() as terms:
             res_c = ev.main(cmp + ["--output_dir", os.path.join(tmp, "c"),
                                    "--device", "cpu"])
         cpu_s = time.perf_counter() - t0
@@ -2538,32 +2808,44 @@ def evaluate_cli_checks(cr, native, dev, tag):
         check(sorted(res_g) == sorted(res_c) and
               list(res_g["per_video"]) == list(res_c["per_video"]),
               "card and CPU results differ in their keys")
-        pairs = [(res_g["self_imitation"], res_c["self_imitation"])] + [
+        pairs = [(res_g[part], res_c[part])
+                 for part in ("self_imitation", "cross_imitation")] + [
             (res_g["per_video"][v], res_c["per_video"][v])
             for v in res_c["per_video"]]
-        gaps = {}
+        gaps, bounds = {}, {}
         for got, want in pairs:
             check(list(got) == list(want), f"metric keys {list(got)}")
             for k, v in want.items():
-                gaps[k] = max(gaps.get(k, 0.0), abs(got[k] - v))
+                gap, bounds[k] = eval_gap(k, got[k], v, terms)
+                gaps[k] = max(gaps.get(k, 0.0), gap)
+        check(sorted(gaps) == sorted(set(EVAL_SELF_KEYS + EVAL_CROSS_KEYS)),
+              f"float32 results hold {sorted(gaps)}")
         print(f"cli.evaluate float32 (TF32 off), one video, --max_frames "
               f"4, card vs CPU (CPU side {cpu_s:.1f} s): self-imitation card "
               f"{ {k: round(v, 6) for k, v in res_g['self_imitation'].items()} }"
-              f", largest gaps {gaps} (bounds {EVAL_BOUNDS}); launches "
-              f"{launches_32} {tag}", flush=True)
+              f", cross-imitation card "
+              f"{ {k: round(v, 6) for k, v in res_g['cross_imitation'].items()} }"
+              f", largest gaps { {k: f'{v:.3e}' for k, v in gaps.items()} } "
+              f"(bounds {bounds}; the distances' relative to their CPU "
+              f"terms { {k: f'{terms[res_c['cross_imitation'][k]]:.4g}' for k in EVAL_FD_KEYS} } "
+              f"in cross-imitation, the others absolute); launches "
+              f"{launches_32} {tag}",
+              flush=True)
         for k, gap in gaps.items():
-            check(gap <= EVAL_BOUNDS[k], f"cli.evaluate {k} card vs CPU "
-                  f"{gap}")
+            check(gap <= bounds[k], f"cli.evaluate {k} card vs CPU {gap}")
     return ({"evaluate_cli": launches, "evaluate_cli_fp32": launches_32},
             wall, n)
 
 
 def evaluation_phase(cr, native, dev, tag):
     """Phase 14 (module docstring); returns {path: launch counts}."""
+    import tempfile
     t_phase = time.perf_counter()
-    rates = metric_nets_checks(dev, tag)
+    rates, seeded = metric_nets_checks(dev, tag)
     rates["mtcnn_frames_s"] = mtcnn_checks(dev, tag)
-    by_path, wall, n = evaluate_cli_checks(cr, native, dev, tag)
+    with tempfile.TemporaryDirectory() as wdir:
+        weights = write_eval_weights(Path(wdir), seeded, tag)
+        by_path, wall, n = evaluate_cli_checks(cr, native, dev, tag, weights)
     print(f"evaluation phase: {time.perf_counter() - t_phase:.1f} s of "
           f"wall time; items/s { {k: round(v, 1) for k, v in rates.items()} }"
           f", cli.evaluate {wall:.2f} s for {n} frames {tag}", flush=True)
@@ -3046,6 +3328,538 @@ def multi_card_phase(cr, imi, assets, cfg, imit_h, src_img, thetas,
     return by_path
 
 
+# -- phase 16: the repository's tools on the port ----------------------------
+
+TOOL_FRAMES = 16            # seeded 256² frames, one batch of 16
+# the frames of the CPU's float32 parity harness: Imitator.inference's
+# first batch of 8 (one flow launch), whose predictions do not depend on
+# the frames after it (the camera comes from frame 0)
+TOOL_CPU_FRAMES = 8
+# phase 16's artifact runs, on the bench body with the full nets (6
+# residual blocks; the trainer's PatchGAN 4 layers) at 256², with fewer
+# epochs: post-tune 8 priors at its recipe's batch 4, 2 epochs (4 steps;
+# the JAX tool's default is 6 priors, 5 epochs at 128², the synthetic
+# body, 2 blocks); the trainer 32 items at batch 16, 0 + 2 epochs (4
+# steps, the second epoch's learning rate decayed; its default is 64
+# items at batch 4, 5 + 25 epochs at 64², the synthetic body, 2 blocks, a
+# 2-layer PatchGAN)
+TOOL_POSTTUNE = ("--size", "256", "--priors", "8", "--epochs", "2",
+                 "--repeat_num", "6")
+TOOL_TRAINCONV = ("--image_size", "256", "--batch_size", "16", "--n_items",
+                  "32", "--nepochs_no_decay", "0", "--nepochs_decay", "2",
+                  "--repeat_num", "6", "--d_layers", "4")
+# runs a module as ``python -m`` would and prints, last, the launch counts
+# of its process
+# (rows, flow) of each counted tool run. posttune_artifact with
+# TOOL_POSTTUNE: the structured source and its personalisation (2 rows),
+# the before and after metrics (self-imitation 1 flow, held-out 1 rows + 1
+# flow, each), the pair batch (1 rows, 1 flow), the refresh (1 rows).
+# trainconv_artifact with TOOL_TRAINCONV: the train and held-out sets (2
+# rows), 4 steps and 2 epochs' visuals (1 rows + 1 flow each).
+# run_imitator --post_tune on TOOL_FRAMES frames and make_prior_poses'
+# TOOL_FRAMES prior poses: personalise, the pair batch, the refresh (3
+# rows), the pair batch and one batch of 32 frames (2 flow)
+POSTTUNE_LAUNCHES = (6, 5)
+TRAINCONV_LAUNCHES = (8, 6)
+RUN_IMITATOR_PT_LAUNCHES = (3, 2)
+TOOL_LAUNCHER = """
+import json, runpy, sys
+from impersonator_tpu_torch.ops import cuda_raster as cr
+name = sys.argv[1]
+sys.argv = [name] + sys.argv[2:]
+runpy.run_module(name, run_name="__main__", alter_sys=True)
+print("LAUNCHES " + json.dumps({k.__name__: k.launches
+                                for k in cr.KERNELS}), flush=True)
+"""
+
+
+def write_bench_smpl(root, assets):
+    """``assets`` (the bench body) as an SMPL model pickle and a UV-mapper
+    OBJ that assets.load_smpl_assets reads back: the same vertices,
+    blend shapes, regressors, weights, kinematic tree and faces (the UVs,
+    one vt per face corner, within an ulp: the loader flips v)."""
+    import pickle
+    import numpy as np
+    nv = assets.v_template.shape[0]
+    parents = np.asarray(assets.parents, np.int64).copy()
+    parents[0] = 0
+    dd = {"v_template": assets.v_template,
+          "shapedirs": np.asarray(assets.shapedirs).T.reshape(nv, 3, -1),
+          "posedirs": np.asarray(assets.posedirs).T.reshape(nv, 3, -1),
+          "J_regressor": np.asarray(assets.j_regressor).T,
+          "cocoplus_regressor": np.asarray(assets.joint_regressor).T,
+          "weights": assets.lbs_weights,
+          "kintree_table": np.stack([parents, np.arange(len(parents))]),
+          "f": np.asarray(assets.faces, np.int32)}
+    pkl = root / "bench_smpl.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump(dd, f)
+    uv = np.asarray(assets.f2uvs, np.float32).reshape(-1, 2)
+    lines = [f"vt {u:.9g} {1.0 - v:.9g}" for u, v in uv]
+    lines += [f"f {3 * i + 1}/{3 * i + 1} {3 * i + 2}/{3 * i + 2} "
+              f"{3 * i + 3}/{3 * i + 3}" for i in range(len(assets.faces))]
+    obj = root / "bench_uv.obj"
+    obj.write_text("\n".join(lines) + "\n")
+    return str(pkl), str(obj)
+
+
+def tool_inputs(root, assets):
+    """Phase 16's seeded inputs under root: TOOL_FRAMES smooth 256² PNG
+    frames (the first TOOL_CPU_FRAMES of them also in a directory of
+    their own), a source PNG and a reference pred_*.png for each frame,
+    the frames' θs as a pose_shape.pkl, the bench body as an SMPL pickle
+    + UV OBJ, and released-layout HMR and full-width generator .pth
+    files."""
+    import pickle
+    import numpy as np
+    import torch
+    from impersonator_tpu_torch.models.generator import ImpersonatorGenerator
+    from impersonator_tpu_torch.models.hmr import HumanModelRecovery, init_hmr
+    from impersonator_tpu_torch.models.layers import init_weights
+    from impersonator_tpu_torch.tasks.imitator import RANDOM_HMR_FC3_SCALE
+    from impersonator_tpu_torch.utils.visualizer import write_png
+    s = GEOM["s"]
+    frames, refs = root / "frames", root / "refs"
+    first = root / "frames_first"
+    for d in (frames, refs, first):
+        d.mkdir()
+    imgs = smooth_frames(2 * TOOL_FRAMES + 1, s, 61)
+    for i in range(TOOL_FRAMES):
+        write_png(str(frames / f"{i:03d}.png"), imgs[i])
+        write_png(str(refs / f"pred_{i:03d}.png"), imgs[TOOL_FRAMES + i])
+        if i < TOOL_CPU_FRAMES:
+            write_png(str(first / f"{i:03d}.png"), imgs[i])
+    write_png(str(root / "src.png"), np.round(
+        (source_image(s) + 1.0) * 127.5).clip(0, 255).astype(np.uint8))
+    th = train_batch(8, TOOL_FRAMES, 62)["smpls"][:, 0]
+    with open(root / "pose_shape.pkl", "wb") as f:
+        pickle.dump({"cams": th[:, :3], "pose": th[:, 3:75],
+                     "shape": th[:, 75:]}, f)
+    smpl_pkl, uv_obj = write_bench_smpl(root, assets)
+    g = torch.Generator().manual_seed(63)
+    hmr = HumanModelRecovery()
+    init_hmr(hmr, g, assets.mean_theta, fc3_scale=RANDOM_HMR_FC3_SCALE)
+    torch.save(hmr.state_dict(), root / "hmr.pth")
+    gen = ImpersonatorGenerator()
+    init_weights(gen, g)
+    torch.save(gen.state_dict(), root / "gen.pth")
+    return {"frames": str(frames), "frames_first": str(first),
+            "refs": str(refs), "thetas": th,
+            "smpl": ["--smpl_model", smpl_pkl, "--uv_mapping", uv_obj],
+            "src": str(root / "src.png"), "hmr": str(root / "hmr.pth"),
+            "gen": str(root / "gen.pth"), "gen_sd": gen.state_dict()}
+
+
+def start_modules(jobs, root):
+    """Each {label: [module, args...]} as a subprocess of TOOL_LAUNCHER,
+    all started together; {label: process}."""
+    return {k: subprocess.Popen([sys.executable, "-c", TOOL_LAUNCHER, *v],
+                                cwd=root, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+            for k, v in jobs.items()}
+
+
+def finish_modules(procs):
+    """Wait for start_modules' processes; {label: (stdout, launch
+    counts)}. Fails on a non-zero exit."""
+    out = {}
+    for k, proc in procs.items():
+        so, se = proc.communicate(timeout=900)
+        check(proc.returncode == 0, f"{k} exited {proc.returncode}:\n"
+                                    f"{so[-2000:]}\n{se[-3000:]}")
+        last = [ln for ln in so.splitlines() if ln.startswith("LAUNCHES ")]
+        check(len(last) == 1, f"{k}: no launch counts")
+        out[k] = (so, json.loads(last[0][len("LAUNCHES "):]))
+    return out
+
+
+def tool_launches(label, got, rows, flow, tiles=0):
+    want = {"zbuffer_bucket_rows": rows, "zbuffer_bucket_flow": flow,
+            "zbuffer_tiles": tiles}
+    check(got == want, f"{label} launches {got}, expected {want}")
+    return got
+
+
+def prior_poses_checks(inp, native, got_pkl, tag):
+    """make_prior_poses' θs from the card against the same HMR on the CPU
+    (TF32 off in both, HMR's own full_fp32): within FEAT_RTOL of the
+    largest |θ|."""
+    import pickle
+    import numpy as np
+    from impersonator_tpu_torch.tools import image_paths
+    from impersonator_tpu_torch.tools import make_prior_poses as mpp
+    from impersonator_tpu_torch.utils import cv_utils
+    with open(got_pkl, "rb") as f:
+        d = pickle.load(f)
+    th_g = np.concatenate([d["cams"], d["pose"], d["shape"]], 1)
+    t0 = time.perf_counter()
+    with card_decoder_for_cpu(native):
+        imgs = np.stack([cv_utils.resize_img_hwc(cv_utils.read_img(p, "cpu"),
+                                                 224)
+                         for p in image_paths(inp["frames"])])
+    th_c = mpp.regress(mpp.load_hmr(inp["hmr"], "cpu"), imgs, "cpu")
+    gap = float(np.abs(th_g - th_c).max() / np.abs(th_c).max())
+    print(f"make_prior_poses on the card: {th_g.shape[0]} θs, against the "
+          f"CPU {gap:.3e} of the largest |θ| (bound {FEAT_RTOL}; CPU "
+          f"{time.perf_counter() - t0:.1f} s) {tag}", flush=True)
+    check(th_g.shape == (TOOL_FRAMES, 85) and np.isfinite(th_g).all(),
+          f"prior poses {th_g.shape}")
+    check(gap <= FEAT_RTOL, f"make_prior_poses card vs CPU {gap}")
+
+
+VISUAL_CPU_FRAMES = 2      # visual_iper's frames rendered on the CPU too
+
+
+def visual_checks(cr, inp, out_dir, dev, tag):
+    """visual_iper's renders: on the card's own geometry the rows kernel's
+    fim equals its plain twin's (on the card) and the tool's triptychs
+    equal the card's in-process ones, every value; on the CPU's geometry
+    of the first VISUAL_CPU_FRAMES frames the card's fim equals the CPU's
+    and its debug render is within TEX_TOL of the CPU's."""
+    import numpy as np
+    import torch
+    from impersonator_tpu_torch.assets import load_smpl_assets
+    from impersonator_tpu_torch.data import native
+    from impersonator_tpu_torch.ops import smpl as smpl_ops
+    from impersonator_tpu_torch.tasks.renderer import SMPLRenderer
+    from impersonator_tpu_torch.tools import image_paths
+    from impersonator_tpu_torch.tools import visual_iper as vi
+    from impersonator_tpu_torch.utils import cv_utils
+    t0 = time.perf_counter()
+    assets = load_smpl_assets(inp["smpl"][1], inp["smpl"][3])
+    s, th = GEOM["s"], torch.from_numpy(inp["thetas"])
+    parents = assets.parents
+    rend = {d: (SMPLRenderer.create(assets, d, image_size=s),
+                smpl_ops.SMPLParams.from_assets(assets, d))
+            for d in ("cpu", dev.type)}
+    rend_g, params_g = rend[dev.type]
+    reset_counts(cr)
+    fim_g, rgb_g, sil_g = vi.render_batch(rend_g, params_g, parents,
+                                          th.to(dev))
+    torch.cuda.synchronize()
+    one = read_counts(cr)
+    with plain_twins(cr):
+        fim_p, _, _ = vi.render_batch(rend_g, params_g, parents, th.to(dev))
+    check(one["zbuffer_bucket_rows"] == 1, f"visual render launches {one}")
+    check(torch.equal(fim_g, fim_p), "visual_iper fim: kernel vs plain twin")
+    paths = image_paths(inp["frames"])
+    imgs = cv_utils.load_image_batch(paths, s, dev)
+    for j, p in enumerate(paths):
+        got = native.read_image(str(Path(out_dir) / f"qa_{Path(p).stem}.png"),
+                                dev)
+        want = cv_utils._to_u8(vi.triptych(imgs[j], rgb_g[j].cpu().numpy(),
+                                           sil_g[j].cpu().numpy()), True)
+        check(np.array_equal(got, want), f"visual_iper {p}: the tool's "
+                                         f"triptych")
+
+    n = VISUAL_CPU_FRAMES
+    rend_c, params_c = rend["cpu"]
+    fim_c, rgb_c, _ = vi.render_batch(rend_c, params_c, parents, th[:n])
+    info = smpl_ops.get_details(params_c, th[:n], parents)
+    f2v, fim, wim = rend_g.render_fim_wim(info["cam"].to(dev),
+                                          info["verts"].to(dev))
+    rgb = rend_g.render_textured(fim, wim, torch.ones(
+        (n, f2v.shape[1], rend_g.tex_size ** 2, 3), device=dev))
+    rgb_gap = float((rgb.cpu() - rgb_c).abs().max())
+    print(f"visual_iper: {len(paths)} triptychs of the "
+          f"{assets.faces.shape[0]}-face bench body equal to the card's "
+          f"renders, fim = plain twin; on the CPU's geometry of {n} frames "
+          f"fim card = CPU, render gap {rgb_gap:.3e} (bound {TEX_TOL}); "
+          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    check(torch.equal(fim.cpu(), fim_c), "visual_iper fim card vs CPU")
+    check(rgb_gap <= TEX_TOL, f"visual_iper render card vs CPU {rgb_gap}")
+
+
+def cpu_harness(inp, native, out):
+    """parity_harness in float32 on the CPU on the first TOOL_CPU_FRAMES
+    frames (the card's decoder reading the PNGs: card_decoder_for_cpu)
+    into out['json'], its seconds into out['s'], a failure into
+    out['error']; phase 16 runs it on a thread beside the tool
+    subprocesses."""
+    from impersonator_tpu_torch.tools import parity_harness as ph
+    try:
+        t0 = time.perf_counter()
+        with card_decoder_for_cpu(native):
+            out["json"] = ph.harness(ph.parse_args(
+                harness_args(inp, inp["frames_first"])
+                + ["--compute_dtype", "float32", "--device", "cpu"]))
+        out["s"] = time.perf_counter() - t0
+    except BaseException as e:    # noqa: BLE001 (re-raised by the phase)
+        out["error"] = e
+
+
+def harness_checks(res_c, cpu_s, res32, res16, tag):
+    """parity_harness: the card's float32 JSON on its first
+    TOOL_CPU_FRAMES frames against the CPU's within EVAL_BOUNDS, each
+    frame; the bf16 and float32 runs' JSON finite over every frame."""
+    import numpy as np
+    gaps = {k: 0.0 for k in EVAL_BOUNDS}
+    check([r["frame"] for r in res32["per_frame"]][:TOOL_CPU_FRAMES] ==
+          [r["frame"] for r in res_c["per_frame"]] and
+          len(res_c["per_frame"]) == TOOL_CPU_FRAMES and
+          len(res32["per_frame"]) == TOOL_FRAMES, "harness frames")
+    for g, c in zip(res32["per_frame"], res_c["per_frame"]):
+        for k in gaps:
+            gaps[k] = max(gaps[k], abs(g[k] - c[k]))
+    check(len(res16["per_frame"]) == TOOL_FRAMES and all(
+        np.isfinite(r[k]) for res in (res16, res32)
+        for r in res["per_frame"] for k in gaps), "harness JSON")
+    print(f"parity_harness on the card, {TOOL_FRAMES} frames at "
+          f"{GEOM['s']}^2 (bench body, full generator): bf16 aggregate "
+          f"{res16['aggregate']}; float32 card vs CPU on the first "
+          f"{TOOL_CPU_FRAMES}, largest gaps "
+          f"{ {k: f'{v:.3e}' for k, v in gaps.items()} } (bounds "
+          f"{ {k: EVAL_BOUNDS[k] for k in gaps} }; the CPU run {cpu_s:.1f} s "
+          f"beside the subprocesses) {tag}", flush=True)
+    for k, v in gaps.items():
+        check(v <= EVAL_BOUNDS[k], f"parity_harness {k} card vs CPU {v}")
+
+
+def harness_args(inp, frames):
+    from impersonator_tpu_torch.cli import evaluate as ev
+    return ["--src_path", inp["src"], "--tgt_path", frames,
+            "--ref_dir", inp["refs"], "--gen_ckpt", inp["gen"],
+            "--hmr_ckpt", inp["hmr"], "--lpips_ckpt", ev.REAL_LPIPS_LIN,
+            "--image_size", str(GEOM["s"]), *inp["smpl"]]
+
+
+def artifact_first_steps(dev, tag):
+    """The two artifacts' recipes, first step card vs CPU (128², batch 2,
+    float32, TF32 off), on the CPU's raster products:
+    posttune_artifact's structured source and prior poses through one
+    tune step, trainconv_artifact's learnable set through one G+D step;
+    losses within TUNE_LOSS_RTOL. On the tools' own defaults (the
+    synthetic body, 2 residual blocks, a 2-layer PatchGAN), not the bench
+    body and the full nets: phases 10 and 11 hold the same tune and train
+    steps card vs CPU there, and here that point cost 45.9 s of CPU time
+    on phase 16's longest path (against 5 s)."""
+    import torch
+    from impersonator_tpu_torch.config import TrainConfig
+    from impersonator_tpu_torch.data.loader import stage_batch
+    from impersonator_tpu_torch.tasks import post_tune as pt
+    from impersonator_tpu_torch.tasks import trainer as tt
+    from impersonator_tpu_torch.tasks.imitator import Imitator, ImitatorNets
+    from impersonator_tpu_torch.tools import posttune_artifact as pa
+    from impersonator_tpu_torch.tools import trainconv_artifact as ta
+    from impersonator_tpu_torch.utils.precision import full_fp32
+    t0 = time.perf_counter()
+    with full_fp32():
+        im_c, _ = pa.build(128, 0, torch.device("cpu"), "float32")
+        im_g = Imitator(im_c.cfg, assets=im_c.assets, device=dev,
+                        nets=ImitatorNets(copy.deepcopy(
+                            im_c.nets.generator)))
+        priors = pt.default_prior_poses(im_c.src_info["theta"], n=2,
+                                        scale=0.12)
+        batch = pt.build_meta_pairs(im_c, priors)
+        bg = im_c.src_info["bg"].expand(2, -1, -1, -1)
+        tune = []
+        for im, d in ((im_c, "cpu"), (im_g, dev)):
+            step = pt.make_tune_step(im, pt.tune_optimizer(
+                im.nets.generator, 2e-4))
+            tune.append({k: float(v) for k, v in step(
+                {k: v.to(d) for k, v in batch.items()}, bg.to(d)).items()})
+        cfg = TrainConfig(image_size=128, batch_size=2, repeat_num=2,
+                          d_layers=2, use_vgg=True, use_style=False,
+                          use_face=False, train_dtype="float32")
+        tr_c = tt.build_trainer(cfg, device="cpu")
+        tr_g = tt.build_trainer(cfg, device=dev)
+        st_c = tr_c.init_state()
+        st_g = tr_g.init_state(copy.deepcopy(st_c.generator),
+                               copy.deepcopy(st_c.discriminator))
+        b = stage_batch(ta.make_learnable_batchset(tr_c, 2), "cpu")
+        src, tsf = b["images"][:, 0], b["images"][:, 1]
+        inputs = tt.body_recovery_flow(tr_c.renderer, tr_c.smpl_params,
+                                       tr_c.assets.parents, src, tsf,
+                                       b["smpls"][:, 0], b["smpls"][:, 1])
+        train = []
+        for tr, st, d in ((tr_c, st_c, "cpu"), (tr_g, st_g, dev)):
+            inp = {k: None if v is None else v.to(d)
+                   for k, v in inputs.items()}
+            _, m = tt.make_update(tr)(st, inp, src.to(d), tsf.to(d))
+            train.append({k: float(v) for k, v in m.items()})
+    gaps = [max(abs(g[k] - c[k]) / abs(c[k]) for k in c if c[k] != 0.0)
+            for c, g in (tune, train)]
+    print(f"artifact recipes, first step card vs CPU (synthetic body, 2 "
+          f"blocks, 2-layer D, 128², batch 2, float32, TF32 off, the CPU's "
+          f"raster): post-tune losses "
+          f"{gaps[0]:.3e}, train losses {gaps[1]:.3e} relative (bound "
+          f"{TUNE_LOSS_RTOL}; {time.perf_counter() - t0:.1f} s) {tag}",
+          flush=True)
+    for gap, what in zip(gaps, ("post-tune", "train")):
+        check(gap <= TUNE_LOSS_RTOL, f"{what} artifact step card vs CPU "
+                                     f"{gap}")
+
+
+def tools_phase(cr, native, assets, dev, tag):
+    """Phase 16 (module docstring); returns {path: launch counts}."""
+    import math
+    import pickle
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from impersonator_tpu_torch.utils import convert as C
+    from impersonator_tpu_torch.utils.checkpoint import (flax_msgpack_bytes,
+                                                         read_flax_msgpack)
+    from impersonator_tpu_torch.utils.precision import full_fp32
+    from impersonator_tpu_torch.utils.video import frames_to_mp4, have_ffmpeg
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp_s:
+        tmp = Path(tmp_s)
+        t0 = time.perf_counter()
+        inp = tool_inputs(tmp, assets)
+        print(f"tool inputs written ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        root = Path(__file__).resolve().parent
+        t = "impersonator_tpu_torch.tools."
+        cuda = ["--device", dev.type]
+        jobs = {
+            "convert_weights": [t + "convert_weights", "gen", inp["gen"],
+                                str(tmp / "gen.msgpack")],
+            "make_prior_poses": [t + "make_prior_poses", "--img_dir",
+                                 inp["frames"], "--out",
+                                 str(tmp / "priors.pkl"), "--hmr_ckpt",
+                                 inp["hmr"], "--itv", "1", "--batch",
+                                 str(TOOL_FRAMES), *cuda],
+            "visual_iper": [t + "visual_iper", "--frames_dir", inp["frames"],
+                            "--smpl_pkl", str(tmp / "pose_shape.pkl"),
+                            "--out_dir", str(tmp / "qa"), "--image_size",
+                            str(GEOM["s"]), "--batch", str(TOOL_FRAMES),
+                            *inp["smpl"], *cuda],
+            "parity_harness_fp32": [t + "parity_harness",
+                                    *harness_args(inp, inp["frames"]),
+                                    "--compute_dtype", "float32", *cuda],
+            "parity_harness": [t + "parity_harness",
+                               *harness_args(inp, inp["frames"]), *cuda],
+            "posttune_artifact": [t + "posttune_artifact", *TOOL_POSTTUNE,
+                                  *inp["smpl"], "--out",
+                                  str(tmp / "pt.json"), *cuda],
+            "trainconv_artifact": [t + "trainconv_artifact",
+                                   *TOOL_TRAINCONV, *inp["smpl"], "--out",
+                                   str(tmp / "tc.json"), *cuda],
+        }
+        ffmpeg = have_ffmpeg()
+        if ffmpeg:
+            (tmp / "videos").mkdir()
+            frames_to_mp4(smooth_frames(TOOL_FRAMES, GEOM["s"], 64),
+                          str(tmp / "videos" / "001_1_1.mp4"))
+            jobs["prepare_iper"] = [t + "prepare_iper", "--video_dir",
+                                    str(tmp / "videos"), "--out_dir",
+                                    str(tmp / "iper")]
+        t0 = time.perf_counter()
+        cpu_run = {}
+        cpu_thread = threading.Thread(target=cpu_harness, daemon=True,
+                                      args=(inp, native, cpu_run))
+        procs = start_modules(jobs, root)
+        everything = dict(procs)
+        # TF32 off for the whole of it: the two threads' own full_fp32
+        # blocks then leave the flags as they find them
+        with full_fp32():
+            cpu_thread.start()
+            res = finish_modules({"make_prior_poses":
+                                  procs.pop("make_prior_poses")})
+            # the prior poses into the imitator's post-tune, on the card
+            procs.update(start_modules({"run_imitator_post_tune": [
+                "impersonator_tpu_torch.cli.run_imitator", "--src_path",
+                inp["src"], "--tgt_path", inp["frames"], "--post_tune",
+                "--prior_poses", str(tmp / "priors.pkl"), "--image_size",
+                str(GEOM["s"]), "--output_dir", str(tmp / "imit"),
+                "--checkpoints_dir", str(tmp / "ckpt"), *inp["smpl"],
+                *cuda]}, root))
+            everything.update(procs)
+            try:
+                # while the card runs the rest, the checks whose inputs
+                # are there
+                artifact_first_steps(dev, tag)
+                prior_poses_checks(inp, native, str(tmp / "priors.pkl"),
+                                   tag)
+                res.update(finish_modules({"visual_iper":
+                                           procs.pop("visual_iper")}))
+                visual_checks(cr, inp, str(tmp / "qa"), dev, tag)
+                res.update(finish_modules(procs))
+            finally:
+                for proc in everything.values():
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            tools_s = time.perf_counter() - t0
+            cpu_thread.join()
+        if "error" in cpu_run:
+            raise cpu_run["error"]
+        by_path = {f"tool_{k}": v[1] for k, v in res.items()}
+        n_flow = math.ceil(TOOL_FRAMES / 8)     # Imitator.inference's batch
+        tool_launches("convert_weights", by_path["tool_convert_weights"], 0,
+                      0)
+        tool_launches("make_prior_poses", by_path["tool_make_prior_poses"],
+                      0, 0)
+        tool_launches("visual_iper", by_path["tool_visual_iper"], 1, 0)
+        for k in ("parity_harness", "parity_harness_fp32"):
+            tool_launches(k, by_path[f"tool_{k}"], 1, n_flow)
+        tool_launches("posttune_artifact", by_path["tool_posttune_artifact"],
+                      *POSTTUNE_LAUNCHES)
+        tool_launches("trainconv_artifact",
+                      by_path["tool_trainconv_artifact"], *TRAINCONV_LAUNCHES)
+        tool_launches("run_imitator --post_tune --prior_poses",
+                      by_path["tool_run_imitator_post_tune"],
+                      *RUN_IMITATOR_PT_LAUNCHES)
+        with open(tmp / "priors.pkl", "rb") as f:
+            n_priors = len(pickle.load(f)["cams"])
+        check(n_priors == TOOL_FRAMES and len(list(
+            (tmp / "imit").glob("pred_*"))) == TOOL_FRAMES,
+            f"run_imitator --post_tune on {n_priors} priors: preds")
+
+        want = flax_msgpack_bytes(C.generator_to_jax(inp["gen_sd"]))
+        got = (tmp / "gen.msgpack").read_bytes()
+        back = C.generator_state_dict_from_jax(
+            read_flax_msgpack(str(tmp / "gen.msgpack")))
+        check(got == want and all(torch.equal(back[k], v)
+                                  for k, v in inp["gen_sd"].items()),
+              "convert_weights gen: bytes or leaves differ")
+        harness = {}
+        for k in ("parity_harness", "parity_harness_fp32"):
+            text = res[k][0][:res[k][0].index("LAUNCHES ")]
+            harness[k] = json.loads(text[text.index("{"):])
+        harness_checks(cpu_run["json"], cpu_run["s"],
+                       harness["parity_harness_fp32"],
+                       harness["parity_harness"], tag)
+        pt_json = json.loads((tmp / "pt.json").read_text())
+        tc_json = json.loads((tmp / "tc.json").read_text())
+        cyc = pt_json["cycle_loss_per_epoch"]
+        rows = tc_json["per_epoch"]
+        check(len(cyc) == 2 and all(np.isfinite(cyc)) and all(
+            np.isfinite(v) for part in ("before", "after")
+            for v in pt_json[part].values()), f"posttune artifact {pt_json}")
+        check(len(rows) == 2 and all(np.isfinite(r[k]) for r in rows
+                                     for k in r) and
+              tc_json["trend"]["lr_decay_kicked_in"],
+              f"trainconv artifact {rows}")
+        print(f"posttune_artifact on the card ({' '.join(TOOL_POSTTUNE)}): "
+              f"cycle loss per epoch {cyc}, after {pt_json['after']}; "
+              f"trainconv_artifact ({' '.join(TOOL_TRAINCONV)}): "
+              f"{[{k: r[k] for k in ('g_total', 'd_loss', 'eval_ssim')} for r in rows]} "
+              f"{tag}", flush=True)
+
+        if ffmpeg:
+            iper = tmp / "iper" / "001" / "1" / "1"
+            n = len(list(iper.glob("frame_*.png"))) if iper.is_dir() else 0
+            check(n == TOOL_FRAMES, f"prepare_iper wrote {n} frames")
+            print(f"prepare_iper: {TOOL_FRAMES}-frame mp4 -> {n} frames "
+                  f"under 001/1/1", flush=True)
+        else:
+            print("prepare_iper: NOT RUN, this host has no ffmpeg "
+                  "(utils.video.have_ffmpeg() is false)", flush=True)
+
+    print(f"tools phase: {time.perf_counter() - t_phase:.1f} s of wall time "
+          f"(the tools as {len(res)} subprocesses, make_prior_poses' pickle "
+          f"then into run_imitator --post_tune --prior_poses, "
+          f"{tools_s:.1f} s with the checks made meanwhile; the CPU "
+          f"parity harness beside them {cpu_run['s']:.1f} s); "
+          f"launches { {k: [v['zbuffer_bucket_rows'], v['zbuffer_bucket_flow']] for k, v in by_path.items()} } "
+          f"(rows, flow) {tag}", flush=True)
+    return by_path
+
+
 def main():
     import numpy as np
     import torch
@@ -3491,6 +4305,11 @@ def main():
                                    tag)
     print(f"process state after phase 15: {process_state()}", flush=True)
 
+    # -- phase 16: the repository's tools on the port -----------------------
+    lap("16")
+    tool_launches_by_path = tools_phase(cr, native, assets, dev, tag)
+    print(f"process state after phase 16: {process_state()}", flush=True)
+
     # -- phase 9: fp32 (TF32 off) card vs CPU: swap, view, DeepFill ----------
     lap("9")
     torch.backends.cudnn.allow_tf32 = False
@@ -3691,7 +4510,7 @@ def main():
                "post_tune_imitator": pt_launches,
                "post_tune_swapper": pt_sw_launches, **train_launches,
                **io_launches, **trainer_launches, **eval_launches,
-               **mc_launches}
+               **mc_launches, **tool_launches_by_path}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"impersonator_tpu_torch/csrc/{src}",

@@ -10,6 +10,7 @@ from impersonator_tpu_torch.metrics.metrics import (  # noqa: F401
 from impersonator_tpu_torch.metrics.unpaired import (  # noqa: F401
     UnpairedMetricRunner,
     frechet_distance,
+    frechet_distance_of,
     inception_score,
     gaussian_stats,
 )

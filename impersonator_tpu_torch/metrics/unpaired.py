@@ -4,9 +4,13 @@
 The statistics (:func:`frechet_distance`, :func:`gaussian_stats`,
 :func:`inception_score`, :func:`matched_cosine`) are host NumPy in
 float64, copied from the JAX package: the matrix square root is an
-offline eval-time step, not device work. The embed functions run their
-nets on the frames' device in float32 without TF32 and return device
-tensors; :class:`UnpairedMetricRunner` gathers their outputs on the host.
+offline eval-time step, not device work. :class:`UnpairedMetricRunner`
+takes its distances with :func:`frechet_distance_of`, the same distance
+solved in the span of the two feature sets (a few frames against 2,048
+to 12,288 dimensions: (N1 + N2)² eigenproblems instead of D²). The embed
+functions run their nets on the frames' device in float32 without TF32
+and return device tensors; :class:`UnpairedMetricRunner` gathers their
+outputs on the host.
 """
 
 from __future__ import annotations
@@ -49,6 +53,40 @@ def frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> float:
     wa = np.linalg.eigvalsh((a + a.T) / 2.0)
     tr_covmean = np.sum(np.sqrt(np.maximum(wa, 0.0)))
     return float(diff @ diff + np.trace(s1) + np.trace(s2) - 2 * tr_covmean)
+
+
+def frechet_distance_of(f1, f2, eps: float = 1e-6) -> float:
+    """``frechet_distance`` of the Gaussians of two feature sets (N1, D)
+    and (N2, D), computed in the span of their centred features when
+    N1 + N2 < D (FID's usual case: a few frames, 2048 to 12,288
+    dimensions). There the eigenproblems are (N1 + N2)² instead of D²:
+    with a = (f1 - mu1)ᵀ / sqrt(N1 - 1), b likewise, S1 = a aᵀ, S2 = b bᵀ,
+    and Q an orthonormal basis of [a b], (S1 + eps)(S2 + eps) acts on
+    span Q as (Qᵀ S1 Q + eps)(Qᵀ S2 Q + eps) and as eps² on the rest, so
+    Tr sqrt of it is the small problem's plus (D - k)·eps. The D² route
+    rounds those D - k eigenvalues (eps² = 1e-12) at the scale of the
+    largest one, and its sum of their square roots drifts by up to
+    ~1e-3 of the distance; this route does not."""
+    f1 = np.asarray(f1, np.float64)
+    f2 = np.asarray(f2, np.float64)
+    (n1, d), n2 = f1.shape, f2.shape[0]
+    if min(n1, n2) < 2 or n1 + n2 >= d:
+        return frechet_distance(*gaussian_stats(f1), *gaussian_stats(f2),
+                                eps)
+    mu1, mu2 = f1.mean(axis=0), f2.mean(axis=0)
+    a = (f1 - mu1).T / np.sqrt(n1 - 1)
+    b = (f2 - mu2).T / np.sqrt(n2 - 1)
+    q, _ = np.linalg.qr(np.concatenate([a, b], axis=1))
+    k = q.shape[1]
+    qa, qb = q.T @ a, q.T @ b
+    w1, v1 = np.linalg.eigh(qa @ qa.T + np.eye(k) * eps)
+    p1_half = (v1 * np.sqrt(np.maximum(w1, 0.0))) @ v1.T
+    m = p1_half @ (qb @ qb.T + np.eye(k) * eps) @ p1_half
+    wm = np.linalg.eigvalsh((m + m.T) / 2.0)
+    tr_covmean = np.sum(np.sqrt(np.maximum(wm, 0.0))) + (d - k) * eps
+    diff = mu1 - mu2
+    return float(diff @ diff + np.sum(a * a) + np.sum(b * b)
+                 - 2 * tr_covmean)
 
 
 def gaussian_stats(features: np.ndarray):
@@ -173,9 +211,7 @@ class UnpairedMetricRunner:
 
     @staticmethod
     def _fd(pred, ref):
-        mu1, s1 = gaussian_stats(pred)
-        mu2, s2 = gaussian_stats(ref)
-        return frechet_distance(mu1, s1, mu2, s2)
+        return frechet_distance_of(pred, ref)
 
     def evaluate(self) -> dict:
         out = {}

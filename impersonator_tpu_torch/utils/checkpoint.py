@@ -12,8 +12,11 @@ them on a background thread.
 :func:`read_flax_msgpack` decodes the files the JAX package writes
 (``flax.serialization.to_bytes``: its checkpoints, and its generator,
 discriminator, face-net and VGG param files) into nested dicts of numpy
-arrays, for ``utils.convert``'s ``*_state_dict_from_jax``; it needs
-neither flax nor the msgpack package.
+arrays, for ``utils.convert``'s ``*_state_dict_from_jax``;
+:func:`write_flax_msgpack` writes such files, byte for byte what
+``flax.serialization.to_bytes`` writes for the same tree (for
+``utils.convert``'s ``*_to_jax`` trees, so a host without flax makes the
+JAX package's weight files). Neither needs flax or the msgpack package.
 """
 
 from __future__ import annotations
@@ -317,3 +320,183 @@ def read_flax_msgpack(path: str):
     if reader.pos != len(data):
         raise ValueError(f"{path}: trailing bytes after the msgpack object")
     return _unchunk(tree)
+
+
+class _Array:
+    """An array leaf as flax packs it: shape, numpy dtype name, C-order
+    bytes."""
+
+    def __init__(self, shape, dtype: str, data: bytes, itemsize: int):
+        self.shape, self.dtype, self.data = tuple(shape), dtype, data
+        self.itemsize = itemsize
+
+
+def _array(x) -> _Array:
+    """A numpy array or torch tensor as an :class:`_Array`; torch's
+    bfloat16 goes by its bits under the name ``bfloat16``, the name
+    ml_dtypes gives numpy's."""
+    if torch.is_tensor(x):
+        x = x.detach().cpu().contiguous()
+        if x.dtype == torch.bfloat16:
+            return _Array(x.shape, "bfloat16",
+                          x.view(torch.int16).numpy().tobytes(), 2)
+        x = x.numpy()
+    x = np.asarray(x)
+    if x.dtype.hasobject or x.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes cannot be written")
+    return _Array(x.shape, x.dtype.name, x.tobytes("C"), x.dtype.itemsize)
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _state(x, max_chunk: int):
+    """flax's ``to_state_dict`` (dicts, lists and tuples as str-keyed maps
+    in their own order, NamedTuples by field) followed by its
+    ``_chunk_array_leaves_in_place``: an array of more than ``max_chunk``
+    bytes becomes a ``__msgpack_chunked_array__`` map."""
+    if _is_namedtuple(x):
+        return {k: _state(getattr(x, k), max_chunk) for k in x._fields}
+    if isinstance(x, (list, tuple)):
+        return {str(i): _state(v, max_chunk) for i, v in enumerate(x)}
+    if isinstance(x, dict):
+        out = {str(k): _state(v, max_chunk) for k, v in x.items()}
+        if len(out) != len(x):
+            raise ValueError("dict keys must have unique str forms")
+        return out
+    if isinstance(x, np.ndarray) or torch.is_tensor(x):
+        arr = _array(x)
+        if len(arr.data) > max_chunk:
+            return _chunk(arr, max_chunk)
+        return arr
+    return x
+
+
+def _chunk(arr: _Array, max_chunk: int) -> dict:
+    """flax's ``_chunk``: the flat array in pieces of max_chunk bytes."""
+    step = max(1, int(max_chunk / arr.itemsize)) * arr.itemsize
+    pieces = [arr.data[i:i + step] for i in range(0, len(arr.data), step)]
+    return {"__msgpack_chunked_array__": True,
+            "shape": {str(i): n for i, n in enumerate(arr.shape)},
+            "chunks": {str(i): _Array((len(b) // arr.itemsize,), arr.dtype,
+                                      b, arr.itemsize)
+                       for i, b in enumerate(pieces)}}
+
+
+class _Writer:
+    """msgpack-python's packer (``use_bin_type=True``, doubles for
+    floats, ``strict_types``) for the leaves a flax state dict holds,
+    with flax's ext types for arrays, numpy scalars and complex."""
+
+    def __init__(self):
+        self.out = []
+
+    def head(self, n: int, fix: int, fix_max: int, codes) -> None:
+        if n <= fix_max:
+            self.out.append(bytes([fix | n]))
+        elif codes[0] is not None and n <= 0xFF:
+            self.out.append(struct.pack(">BB", codes[0], n))
+        elif n <= 0xFFFF:
+            self.out.append(struct.pack(">BH", codes[1], n))
+        else:
+            self.out.append(struct.pack(">BI", codes[2], n))
+
+    def int_(self, n: int) -> None:
+        if 0 <= n < 0x80 or -0x20 <= n < 0:
+            self.out.append(struct.pack("b" if n < 0 else "B", n))
+            return
+        for lo, hi, code, fmt in ((0x80, 0xFF, 0xCC, "B"),
+                                  (-0x80, -1, 0xD0, "b"),
+                                  (0x100, 0xFFFF, 0xCD, "H"),
+                                  (-0x8000, -0x81, 0xD1, "h"),
+                                  (0x10000, 0xFFFFFFFF, 0xCE, "I"),
+                                  (-0x80000000, -0x8001, 0xD2, "i"),
+                                  (1 << 32, (1 << 64) - 1, 0xCF, "Q"),
+                                  (-(1 << 63), -0x80000001, 0xD3, "q")):
+            if lo <= n <= hi:
+                self.out.append(struct.pack(">B" + fmt, code, n))
+                return
+        raise OverflowError(f"integer {n} out of msgpack's range")
+
+    def ext(self, code: int, data: bytes) -> None:
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        n = len(data)
+        if n in fixed:
+            self.out.append(bytes([fixed[n]]))
+        elif n <= 0xFF:
+            self.out.append(struct.pack(">BB", 0xC7, n))
+        elif n <= 0xFFFF:
+            self.out.append(struct.pack(">BH", 0xC8, n))
+        else:
+            self.out.append(struct.pack(">BI", 0xC9, n))
+        self.out.append(struct.pack("b", code) + data)
+
+    def pack(self, x) -> None:
+        t = type(x)
+        if x is None:
+            self.out.append(b"\xc0")
+        elif t is bool:
+            self.out.append(b"\xc3" if x else b"\xc2")
+        elif t is int:
+            self.int_(x)
+        elif t in (bytes, bytearray):
+            self.head(len(x), 0, -1, (0xC4, 0xC5, 0xC6))
+            self.out.append(bytes(x))
+        elif t is str:
+            b = x.encode("utf-8")
+            self.head(len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+            self.out.append(b)
+        elif t is float:
+            self.out.append(struct.pack(">Bd", 0xCB, x))
+        elif t in (list, tuple):     # only inside an array's header
+            self.head(len(x), 0x90, 15, (None, 0xDC, 0xDD))
+            for v in x:
+                self.pack(v)
+        elif t is dict:
+            self.head(len(x), 0x80, 15, (None, 0xDE, 0xDF))
+            for k, v in x.items():
+                self.pack(k)
+                self.pack(v)
+        elif t is _Array:
+            self.ext(_EXT_NDARRAY, _packed(x))
+        elif isinstance(x, np.generic):
+            self.ext(_EXT_NPSCALAR, _packed(_array(np.asarray(x))))
+        elif t is complex:
+            self.ext(_EXT_COMPLEX, _packed_list([x.real, x.imag]))
+        else:
+            raise TypeError(f"cannot write {t.__name__} to a flax msgpack")
+
+
+def _packed_list(items) -> bytes:
+    w = _Writer()
+    w.pack(list(items))
+    return b"".join(w.out)
+
+
+def _packed(arr: _Array) -> bytes:
+    """flax's ``_ndarray_to_bytes``: msgpack of (shape, dtype name,
+    bytes)."""
+    w = _Writer()
+    w.pack([tuple(int(n) for n in arr.shape), arr.dtype, arr.data])
+    return b"".join(w.out)
+
+
+def flax_msgpack_bytes(tree, max_chunk_size: int = 1 << 30) -> bytes:
+    """The bytes ``flax.serialization.to_bytes(tree)`` gives for a tree of
+    dicts, lists, tuples and NamedTuples over numpy arrays, torch tensors
+    (bfloat16 included), numpy scalars, Python scalars, str, bytes and
+    None. ``max_chunk_size`` is flax's ``MAX_CHUNK_SIZE``."""
+    w = _Writer()
+    w.pack(_state(tree, max_chunk_size))
+    return b"".join(w.out)
+
+
+def write_flax_msgpack(tree, path: str, max_chunk_size: int = 1 << 30) -> str:
+    """Write :func:`flax_msgpack_bytes` of ``tree`` to ``path``, the
+    inverse of :func:`read_flax_msgpack`."""
+    data = flax_msgpack_bytes(tree, max_chunk_size)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
+    return path

@@ -45,6 +45,16 @@ modules use.
   :func:`darknet_params_from_jax` (the JAX package's folded darknet
   kernels, HWIO -> OIHW). These walk the port module's own state dict,
   map each key to its flax path, and fail on a tree leaf left over.
+
+The other way, ``*_to_jax`` (``TO_JAX`` by ``tools/convert_weights``'
+kind) maps a reference state dict onto the converter's tree leaf for
+leaf and in its insertion order, walking the same key lists, so
+``utils.checkpoint.write_flax_msgpack`` of it is the converter's file
+byte for byte; ``FROM_JAX`` holds each one's inverse. A released file
+loads into the port's module (:func:`reference_module`) through
+:func:`reference_state_dict`: as it is where the module holds every
+tensor of the file, else through a named ``*_from_reference`` loader
+(``FROM_REFERENCE`` by kind).
 """
 
 from __future__ import annotations
@@ -337,16 +347,23 @@ def senet50_state_dict_from_jax(tree: dict) -> dict:
 _VGG_FEATURE_IDS = (0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25, 28)
 
 
-def vgg19_state_dict_from_jax(tree: dict) -> dict:
-    """{'params'} flax Vgg19 tree of numpy arrays -> this port's Vgg19
-    state dict (float32 CPU tensors)."""
+def _vgg19_keys():
+    """(state-dict key, collection, flax path, kind) of the Vgg19's 13
+    convs; follows convert_vgg19."""
     keys = []
     for ours, idx in enumerate(_VGG_FEATURE_IDS):
         keys.append((f"features.{idx}.weight", "params",
                      f"conv_{ours}/kernel", "conv"))
         keys.append((f"features.{idx}.bias", "params", f"conv_{ours}/bias",
                      "vec"))
-    return _state_dict(tree, keys, {"conv": (3, 2, 0, 1), "vec": None})
+    return keys
+
+
+def vgg19_state_dict_from_jax(tree: dict) -> dict:
+    """{'params'} flax Vgg19 tree of numpy arrays -> this port's Vgg19
+    state dict (float32 CPU tensors)."""
+    return _state_dict(tree, _vgg19_keys(),
+                       {"conv": (3, 2, 0, 1), "vec": None})
 
 
 def discriminator_state_dict_from_jax(tree: dict) -> dict:
@@ -479,22 +496,34 @@ def _leaf_path(mod: nn.Module, leaf: str, path: str):
 _PERMS = {"conv": (3, 2, 0, 1), "dense": (1, 0), "vec": None}
 
 
+def _module_keys(module: nn.Module, rename):
+    """(state-dict key, collection, flax path, kind) of every tensor of
+    ``module`` but the BatchNorms' counters, in the module's order: each
+    key's owner module path goes through ``rename`` to its flax path."""
+    out = []
+    for key in module.state_dict():
+        owner, _, leaf = key.rpartition(".")
+        if leaf != "num_batches_tracked":
+            out.append((key, *_leaf_path(module.get_submodule(owner), leaf,
+                                         rename(owner))))
+    return out
+
+
 def _from_module(module: nn.Module, tree: dict, rename) -> dict:
     """The state dict of ``module`` (any device, ``meta`` included) filled
-    from the flax ``tree`` ({'params'[, 'batch_stats']}): each key's
-    owner module path goes through ``rename`` to its flax path. Raises on
-    a missing leaf, a shape mismatch or a leaf of the tree left over."""
+    from the flax ``tree`` ({'params'[, 'batch_stats']}) along
+    :func:`_module_keys`. Raises on a missing leaf, a shape mismatch or a
+    leaf of the tree left over."""
     flat = {coll: _flat(tree.get(coll, {}))
             for coll in ("params", "batch_stats")}
     used = {coll: set() for coll in flat}
+    paths = {key: rest for key, *rest in _module_keys(module, rename)}
     sd = {}
     for key, ref in module.state_dict().items():
-        owner, _, leaf = key.rpartition(".")
-        if leaf == "num_batches_tracked":
+        if key not in paths:
             sd[key] = torch.tensor(0)
             continue
-        coll, path, kind = _leaf_path(module.get_submodule(owner), leaf,
-                                      rename(owner))
+        coll, path, kind = paths[key]
         arr = np.asarray(flat[coll][path], np.float32)
         if _PERMS[kind] is not None:
             arr = arr.transpose(_PERMS[kind])
@@ -559,8 +588,7 @@ def inception_state_dict_from_jax(tree: dict) -> dict:
     """{'params', 'batch_stats'} flax InceptionV3 tree -> this port's
     ``metrics.zoo.InceptionV3`` state dict."""
     from impersonator_tpu_torch.metrics.zoo import InceptionV3
-    return _from_module(_template(InceptionV3), tree,
-                        lambda o: o.replace(".", "/"))
+    return _from_module(_template(InceptionV3), tree, _inception_path)
 
 
 def facenet_ir_state_dict_from_jax(tree: dict) -> dict:
@@ -569,13 +597,38 @@ def facenet_ir_state_dict_from_jax(tree: dict) -> dict:
     is flax's ``repeat_1_{i}``, ``mixed_6a.branch0`` its
     ``mixed_6a_branch0``)."""
     from impersonator_tpu_torch.metrics.zoo import InceptionResnetV1
+    return _from_module(_template(InceptionResnetV1), tree,
+                        _facenet_ir_path)
 
-    def rename(owner):
-        owner = re.sub(r"^(repeat_\d)\.(\d+)", r"\1_\2", owner)
-        owner = re.sub(r"^(mixed_\da)\.", r"\1_", owner)
-        return owner.replace(".", "/")
 
-    return _from_module(_template(InceptionResnetV1), tree, rename)
+def _inception_path(owner: str) -> str:
+    return owner.replace(".", "/")
+
+
+def _facenet_ir_path(owner: str) -> str:
+    owner = re.sub(r"^(repeat_\d)\.(\d+)", r"\1_\2", owner)
+    owner = re.sub(r"^(mixed_\da)\.", r"\1_", owner)
+    return owner.replace(".", "/")
+
+
+def _osnet_path(owner: str) -> str:
+    owner = re.sub(r"^conv(\d)\.2\.0", r"conv\1_t", owner)
+    owner = re.sub(r"^conv(\d)\.(\d)", r"conv\1_\2", owner)
+    owner = re.sub(r"conv2([bcd])\.(\d)", r"conv2\1_\2", owner)
+    owner = {"fc.0": "fc", "fc.1": "fc_bn"}.get(owner, owner)
+    return owner.replace(".", "/")
+
+
+def _pcb_path(owner: str) -> str:
+    owner = owner[len("model."):]
+    owner = re.sub(r"^(layer\d)\.(\d+)", r"\1_\2", owner)
+    owner = owner.replace("downsample.0", "downsample_conv")
+    owner = owner.replace("downsample.1", "downsample_bn")
+    return owner.replace(".", "/")
+
+
+def _mtcnn_path(owner: str) -> str:
+    return owner + "/conv" if owner.startswith("conv") else owner
 
 
 def osnet_state_dict_from_jax(tree: dict) -> dict:
@@ -585,15 +638,7 @@ def osnet_state_dict_from_jax(tree: dict) -> dict:
     Lite streams ``conv2b.{d}`` its ``conv2b_{d}``, the head ``fc.0`` /
     ``fc.1`` its ``fc`` / ``fc_bn``)."""
     from impersonator_tpu_torch.metrics.reid import OSNet
-
-    def rename(owner):
-        owner = re.sub(r"^conv(\d)\.2\.0", r"conv\1_t", owner)
-        owner = re.sub(r"^conv(\d)\.(\d)", r"conv\1_\2", owner)
-        owner = re.sub(r"conv2([bcd])\.(\d)", r"conv2\1_\2", owner)
-        owner = {"fc.0": "fc", "fc.1": "fc_bn"}.get(owner, owner)
-        return owner.replace(".", "/")
-
-    return _from_module(_template(OSNet), tree, rename)
+    return _from_module(_template(OSNet), tree, _osnet_path)
 
 
 def pcb_state_dict_from_jax(tree: dict) -> dict:
@@ -602,15 +647,7 @@ def pcb_state_dict_from_jax(tree: dict) -> dict:
     ``layer1_0``, its ``downsample.0`` / ``.1`` the ``downsample_conv`` /
     ``downsample_bn``)."""
     from impersonator_tpu_torch.metrics.reid import PCBReid
-
-    def rename(owner):
-        owner = owner[len("model."):]
-        owner = re.sub(r"^(layer\d)\.(\d+)", r"\1_\2", owner)
-        owner = owner.replace("downsample.0", "downsample_conv")
-        owner = owner.replace("downsample.1", "downsample_bn")
-        return owner.replace(".", "/")
-
-    return _from_module(_template(PCBReid), tree, rename)
+    return _from_module(_template(PCBReid), tree, _pcb_path)
 
 
 def mtcnn_state_dicts_from_jax(tree: dict) -> dict:
@@ -618,11 +655,7 @@ def mtcnn_state_dicts_from_jax(tree: dict) -> dict:
     state dicts of this port's ``metrics.mtcnn.PNet`` / ``RNet`` /
     ``ONet`` (flax's conv wrappers add a ``conv`` level)."""
     from impersonator_tpu_torch.metrics import mtcnn
-
-    def rename(owner):
-        return owner + "/conv" if owner.startswith("conv") else owner
-
-    return {name: _from_module(_template(cls), tree[name], rename)
+    return {name: _from_module(_template(cls), tree[name], _mtcnn_path)
             for name, cls in (("pnet", mtcnn.PNet), ("rnet", mtcnn.RNet),
                               ("onet", mtcnn.ONet))}
 
@@ -635,3 +668,351 @@ def darknet_params_from_jax(params: dict) -> dict:
                        .transpose(3, 2, 0, 1)),
                    "bias": np.asarray(p["bias"], np.float32)}
             for name, p in params.items()}
+
+
+# --------------------------------------------------------------------------
+# the other way: reference state dicts -> the JAX package's trees
+# --------------------------------------------------------------------------
+
+# a key list's kind -> the transpose from the torch layout to flax's
+# (the inverse of each *_from_jax permutation: conv OIHW -> HWIO,
+# transposed conv IOHW -> HWIO with I on axis 2, Linear (out, in) -> (in,
+# out))
+_TO_FLAX = {"conv": (2, 3, 1, 0), "convt": (2, 3, 0, 1), "dense": (1, 0),
+            "vec": None, "norm": None}
+
+
+def strip_module(sd: dict) -> dict:
+    """A state dict without ``DataParallel``'s ``module.`` prefixes."""
+    return {(k[7:] if k.startswith("module.") else k): v
+            for k, v in sd.items()}
+
+
+def _host(t) -> np.ndarray:
+    if torch.is_tensor(t):
+        t = t.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(t, np.float32)
+
+
+def _set(tree: dict, path: str, value) -> None:
+    node = tree
+    parts = path.split("/")
+    for part in parts[:-1]:
+        node = node.setdefault(part, {})
+    node[parts[-1]] = value
+
+
+def _tree(sd: dict, keys, colls=("params", "batch_stats")) -> dict:
+    """The flax tree of the (key, collection, flax path, kind) rows, each
+    tensor of ``sd`` float32 and in flax's layout, the paths inserted in
+    the rows' order (the converter's, so the file's bytes match)."""
+    out = {c: {} for c in colls}
+    for key, coll, path, kind in keys:
+        arr = _host(sd[key])
+        if _TO_FLAX[kind] is not None:
+            arr = arr.transpose(_TO_FLAX[kind])
+        _set(out[coll], path, arr)
+    return out
+
+
+def _count(sd: dict, pattern: str) -> int:
+    return sum(re.fullmatch(pattern, k) is not None for k in sd)
+
+
+def generator_to_jax(sd: dict) -> dict:
+    """A reference generator state dict (ImpersonatorGenerator, or the
+    baselines' stacks) -> ``convert_generator``'s {'params'} tree; the
+    depth comes from the keys."""
+    sd = strip_module(sd)
+    unets = [p for p in ("src_model", "tsf_model")
+             if f"{p}.img_reg.0.weight" in sd]
+    n_down = _count(sd, r"tsf_model\.decoders\.\d+\.0\.weight")
+    repeat = _count(sd, r"tsf_model\.resnets\.\d+\.main\.0\.weight")
+    keys = [(k, "params", path, kind)
+            for k, path, kind in _generator_keys(n_down, repeat, unets)]
+    return _tree(sd, keys, ("params",))
+
+
+def hmr_to_jax(sd: dict) -> dict:
+    """hmr_tf2pt.pth's state dict -> ``convert_hmr``'s tree."""
+    return _tree(strip_module(sd), _hmr_keys())
+
+
+def bgnet_to_jax(sd: dict) -> dict:
+    """The deepfillv2 state dict -> ``convert_bgnet``'s tree."""
+    return _tree(strip_module(sd), _bgnet_keys())
+
+
+def vgg19_to_jax(sd: dict) -> dict:
+    """torchvision's vgg19 state dict -> ``convert_vgg19``'s tree (the 13
+    convs the Vgg19 holds)."""
+    return _tree(sd, _vgg19_keys(), ("params",))
+
+
+def sphere_to_jax(sd: dict) -> dict:
+    """sphere20a's state dict -> ``convert_sphere``'s tree (fc6 left
+    out)."""
+    return _tree(strip_module(sd), _sphere_keys(), ("params",))
+
+
+def senet50_to_jax(sd: dict) -> dict:
+    """SENet50's state dict -> ``convert_senet50``'s tree."""
+    return _tree(strip_module(sd), _senet_keys())
+
+
+def osnet_to_jax(sd: dict) -> dict:
+    """osnet_ibn_x1_0's state dict -> ``convert_osnet``'s tree (the
+    classifier left out)."""
+    from impersonator_tpu_torch.metrics.reid import OSNet
+    return _tree(strip_module(sd),
+                 _module_keys(_template(OSNet), _osnet_path))
+
+
+def pcb_to_jax(sd: dict) -> dict:
+    """pcb_net_last.pth's state dict -> ``convert_pcb``'s tree (the
+    backbone under ``model.``; the classifiers left out)."""
+    from impersonator_tpu_torch.metrics.reid import PCBReid
+    return _tree(strip_module(sd),
+                 _module_keys(_template(PCBReid), _pcb_path))
+
+
+def inception_to_jax(sd: dict) -> dict:
+    """torchvision's inception_v3 state dict -> ``convert_inception``'s
+    tree (AuxLogits left out)."""
+    from impersonator_tpu_torch.metrics.zoo import InceptionV3
+    return _tree(sd, _module_keys(_template(InceptionV3), _inception_path))
+
+
+def facenet_ir_to_jax(sd: dict) -> dict:
+    """InceptionResnetV1's state dict -> ``convert_facenet_ir``'s tree
+    (the logits head left out)."""
+    from impersonator_tpu_torch.metrics.zoo import InceptionResnetV1
+    return _tree(strip_module(sd), _module_keys(
+        _template(InceptionResnetV1), _facenet_ir_path))
+
+
+# TO_JAX's backbone kinds -> LPIPS' name of the net
+_BACKBONE_KINDS = {"alexnet": "alex", "vgg16_features": "vgg",
+                   "squeeze_features": "squeeze"}
+
+
+def _backbone_module(net: str) -> nn.Module:
+    from impersonator_tpu_torch.metrics import zoo
+    return {"alex": zoo.AlexFeatures, "vgg": zoo.VGG16Features,
+            "squeeze": zoo.SqueezeFeatures}[net]()
+
+
+def _backbone_path(net: str):
+    """A backbone module's owner path -> its flax path (LPIPS' own, less
+    the ``net`` level)."""
+    return lambda owner: _lpips_backbone_path(net, "net." + owner) \
+        .split("/", 1)[1]
+
+
+def _backbone_to_jax(net: str, sd: dict) -> dict:
+    with torch.device("meta"):
+        module = _backbone_module(net)
+    return _tree(sd, _module_keys(module, _backbone_path(net)), ("params",))
+
+
+def alexnet_to_jax(sd: dict) -> dict:
+    """torchvision's alexnet state dict -> ``convert_alexnet``'s tree."""
+    return _backbone_to_jax("alex", sd)
+
+
+def vgg16_features_to_jax(sd: dict) -> dict:
+    """torchvision's vgg16 state dict -> ``convert_vgg16_features``'s
+    tree."""
+    return _backbone_to_jax("vgg", sd)
+
+
+def squeeze_features_to_jax(sd: dict) -> dict:
+    """torchvision's squeezenet1_1 state dict ->
+    ``convert_squeeze_features``'s tree."""
+    return _backbone_to_jax("squeeze", sd)
+
+
+def lpips_to_jax(lin_sd: dict, backbone_sd: dict | None = None,
+                 net: str = "alex") -> dict:
+    """An LPIPS lin-head file (``lin{i}.model.1.weight``, 5 heads for alex
+    / vgg, 7 for squeeze) and optionally its torchvision backbone ->
+    ``convert_lpips``'s tree: the heads flattened to (C,), the backbone
+    under ``net``."""
+    lin_sd = strip_module(lin_sd)
+    params = {}
+    while f"lin{len(params)}.model.1.weight" in lin_sd:
+        i = len(params)
+        params[f"lin{i}"] = _host(lin_sd[f"lin{i}.model.1.weight"]) \
+            .reshape(-1)
+    if len(params) not in (5, 7):
+        raise ValueError(f"unexpected lin head count {len(params)}")
+    if backbone_sd is not None:
+        params[net] = _backbone_to_jax(net, backbone_sd)["params"]
+    return {"params": params}
+
+
+def mtcnn_to_jax(sds: dict) -> dict:
+    """{'pnet', 'rnet', 'onet'} state dicts -> ``convert_mtcnn``'s tree."""
+    from impersonator_tpu_torch.metrics import mtcnn
+    classes = {"pnet": mtcnn.PNet, "rnet": mtcnn.RNet, "onet": mtcnn.ONet}
+    return {name: _tree(strip_module(sd),
+                        _module_keys(_template(classes[name]), _mtcnn_path),
+                        ("params",))
+            for name, sd in sds.items()}
+
+
+# ``tools/convert_weights``' kinds: (reference state dict -> flax tree)
+TO_JAX = {
+    "hmr": hmr_to_jax, "gen": generator_to_jax, "bgnet": bgnet_to_jax,
+    "vgg19": vgg19_to_jax, "sphere": sphere_to_jax,
+    "senet50": senet50_to_jax, "osnet": osnet_to_jax, "pcb": pcb_to_jax,
+    "facenet_ir": facenet_ir_to_jax, "alexnet": alexnet_to_jax,
+    "vgg16_features": vgg16_features_to_jax,
+    "squeeze_features": squeeze_features_to_jax, "lpips": lpips_to_jax,
+    "inception": inception_to_jax, "mtcnn": mtcnn_to_jax,
+}
+
+
+# --------------------------------------------------------------------------
+# released files -> the port's modules
+# --------------------------------------------------------------------------
+#
+# The port's modules carry the reference's keys, so a state dict holding
+# exactly the tensors ``tools/convert_weights`` reads loads into them with
+# ``load_state_dict(strict=True)``: HMR, the generator, DeepFill, SENet50
+# (its pickle without the ``fc`` head, as the converter's loader reads
+# it) and MTCNN's three nets. A released file with heads the converter
+# leaves out (Sphere20a's fc6, torchvision's classifiers and features past
+# the last conv the port holds, InceptionV3's AuxLogits, InceptionResnetV1's
+# logits, OSNet's classifier, PCB's classifiers, an LPIPS file of lin
+# heads alone) loads through its ``*_from_reference``, which maps the file
+# to the JAX tree and that back onto the module's keys, so what it keeps
+# is what the converter keeps.
+
+
+def sphere20a_from_reference(sd: dict) -> dict:
+    """sphere20a's state dict -> the port's Sphere20a (fc6 dropped)."""
+    return sphere20a_state_dict_from_jax(sphere_to_jax(sd))
+
+
+def vgg19_from_reference(sd: dict) -> dict:
+    """torchvision's vgg19 state dict -> the port's Vgg19 (the first 13
+    convs)."""
+    return vgg19_state_dict_from_jax(vgg19_to_jax(sd))
+
+
+def inception_from_reference(sd: dict) -> dict:
+    """torchvision's inception_v3 state dict -> ``metrics.zoo.
+    InceptionV3`` (AuxLogits dropped)."""
+    return inception_state_dict_from_jax(inception_to_jax(sd))
+
+
+def facenet_ir_from_reference(sd: dict) -> dict:
+    """InceptionResnetV1's state dict -> ``metrics.zoo.InceptionResnetV1``
+    (logits dropped)."""
+    return facenet_ir_state_dict_from_jax(facenet_ir_to_jax(sd))
+
+
+def osnet_from_reference(sd: dict) -> dict:
+    """osnet_ibn_x1_0's state dict -> ``metrics.reid.OSNet`` (the
+    classifier dropped)."""
+    return osnet_state_dict_from_jax(osnet_to_jax(sd))
+
+
+def pcb_from_reference(sd: dict) -> dict:
+    """pcb_net_last.pth's state dict -> ``metrics.reid.PCBReid`` (the
+    classifiers and the backbone's fc dropped)."""
+    return pcb_state_dict_from_jax(pcb_to_jax(sd))
+
+
+def backbone_from_reference(kind: str):
+    """The loader of a torchvision backbone file (``alexnet``,
+    ``vgg16_features``, ``squeeze_features``: the features the port's
+    module holds, the classifier dropped)."""
+    return lambda sd: FROM_JAX[kind](TO_JAX[kind](sd))
+
+
+def lpips_from_reference(lin_sd: dict, backbone_sd: dict | None = None,
+                         net: str = "alex") -> dict:
+    """An LPIPS lin-head file and optionally its torchvision backbone ->
+    ``metrics.zoo.LPIPS(net)``'s keys (the lin keys alone without a
+    backbone, for ``cli.evaluate.load_lpips``' seeded one)."""
+    return lpips_state_dict_from_jax(lpips_to_jax(lin_sd, backbone_sd, net),
+                                     net)
+
+
+def reference_state_dict(kind: str, sd):
+    """A released file's state dict (``tools/convert_weights``' kinds;
+    for ``mtcnn`` the {'pnet', 'rnet', 'onet'} dicts) -> the state dict
+    that loads strictly into the port's module of that kind
+    (:func:`reference_module`), ``module.`` prefixes stripped: the file
+    as it is for the nets that hold every tensor of it, else what the
+    ``FROM_REFERENCE`` loader gives (``FROM_JAX`` of ``TO_JAX``)."""
+    if kind == "mtcnn":
+        return {name: strip_module(s) for name, s in sd.items()}
+    if kind in FROM_REFERENCE:
+        return FROM_REFERENCE[kind](sd)
+    return strip_module(sd)
+
+
+def reference_module(kind: str, sd=None):
+    """The port's module (CPU, default init) that a ``kind`` file loads
+    into; the generator's and DeepFill's widths come from ``sd``. For
+    ``mtcnn`` a {'pnet', 'rnet', 'onet'} dict of modules."""
+    from impersonator_tpu_torch.metrics import mtcnn, reid, zoo
+    from impersonator_tpu_torch.models import facenet, hmr, inpaintor, losses
+    if kind == "gen":
+        from impersonator_tpu_torch.models.generator import \
+            ImpersonatorGenerator
+        sd = strip_module(sd)
+        return ImpersonatorGenerator(
+            bg_dim=sd["bg_model.model.0.weight"].shape[1],
+            src_dim=sd["src_model.encoders.0.0.weight"].shape[1],
+            tsf_dim=sd["tsf_model.encoders.0.0.weight"].shape[1],
+            conv_dim=sd["tsf_model.encoders.0.0.weight"].shape[0],
+            repeat_num=_count(sd, r"tsf_model\.resnets\.\d+\.main\.0\.weight"),
+            n_down=_count(sd, r"tsf_model\.decoders\.\d+\.0\.weight"))
+    if kind == "bgnet":
+        w = strip_module(sd)["coarse_net.0.conv2d.weight"]
+        return inpaintor.InpaintSANet(c_dim=w.shape[1], cnum=w.shape[0])
+    if kind == "mtcnn":
+        return {"pnet": mtcnn.PNet(), "rnet": mtcnn.RNet(),
+                "onet": mtcnn.ONet()}
+    return {"hmr": hmr.HumanModelRecovery, "sphere": facenet.Sphere20a,
+            "senet50": facenet.SENet50, "vgg19": losses.Vgg19,
+            "inception": zoo.InceptionV3,
+            "facenet_ir": zoo.InceptionResnetV1, "osnet": reid.OSNet,
+            "pcb": reid.PCBReid, "alexnet": zoo.AlexFeatures,
+            "vgg16_features": zoo.VGG16Features,
+            "squeeze_features": zoo.SqueezeFeatures}[kind]()
+
+
+def _backbone_from_jax(kind: str):
+    return lambda tree: _from_module(reference_module(kind), tree,
+                                     _backbone_path(_BACKBONE_KINDS[kind]))
+
+
+# the inverse of each TO_JAX entry, onto the port module's keys
+FROM_JAX = {
+    "hmr": hmr_state_dict_from_jax, "gen": generator_state_dict_from_jax,
+    "bgnet": inpaintor_state_dict_from_jax,
+    "vgg19": vgg19_state_dict_from_jax,
+    "sphere": sphere20a_state_dict_from_jax,
+    "senet50": senet50_state_dict_from_jax,
+    "osnet": osnet_state_dict_from_jax, "pcb": pcb_state_dict_from_jax,
+    "facenet_ir": facenet_ir_state_dict_from_jax,
+    "inception": inception_state_dict_from_jax,
+    "mtcnn": mtcnn_state_dicts_from_jax, "lpips": lpips_state_dict_from_jax,
+    **{kind: _backbone_from_jax(kind) for kind in _BACKBONE_KINDS},
+}
+
+
+# the kinds whose released files load through a named loader (the
+# others load as they are, ``module.`` prefixes stripped)
+FROM_REFERENCE = {
+    "sphere": sphere20a_from_reference, "vgg19": vgg19_from_reference,
+    "inception": inception_from_reference,
+    "facenet_ir": facenet_ir_from_reference, "osnet": osnet_from_reference,
+    "pcb": pcb_from_reference, "lpips": lpips_from_reference,
+    **{kind: backbone_from_reference(kind) for kind in _BACKBONE_KINDS},
+}

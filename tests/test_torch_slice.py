@@ -168,6 +168,14 @@ PORT_MODULES = [
     "impersonator_tpu_torch.ops",
     "impersonator_tpu_torch.tasks",
     "impersonator_tpu_torch.data",
+    "impersonator_tpu_torch.tools",
+    "impersonator_tpu_torch.tools.convert_weights",
+    "impersonator_tpu_torch.tools.prepare_iper",
+    "impersonator_tpu_torch.tools.make_prior_poses",
+    "impersonator_tpu_torch.tools.visual_iper",
+    "impersonator_tpu_torch.tools.parity_harness",
+    "impersonator_tpu_torch.tools.posttune_artifact",
+    "impersonator_tpu_torch.tools.trainconv_artifact",
 ]
 
 
@@ -187,7 +195,8 @@ def _chip_smoke_imports():
 
 def test_port_imports_no_jax():
     """Every port module, and everything chip_smoke.py imports, loads
-    without JAX, flax or any module of the JAX package."""
+    without JAX, flax, the msgpack package (the card's host has none) or
+    any module of the JAX package."""
     mods = PORT_MODULES + _chip_smoke_imports()
     code = (
         "import importlib, sys\n"
@@ -197,7 +206,7 @@ def test_port_imports_no_jax():
         "    except ModuleNotFoundError:\n"
         "        pass  # a name imported from a module, not a module\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'impersonator_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'msgpack', 'impersonator_tpu'))\n"
         "print(bad)\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -205,3 +214,6 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "impersonator_tpu_torch.tasks.imitator" in mods
     assert "impersonator_tpu_torch.tasks.swapper" in mods
+    tools = Path(ROOT, "impersonator_tpu_torch", "tools")
+    assert {f"impersonator_tpu_torch.tools.{p.stem}"
+            for p in tools.glob("*.py") if p.stem != "__init__"} <= set(mods)
