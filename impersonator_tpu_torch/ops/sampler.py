@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from impersonator_tpu_torch.utils.profiling import span
+
 
 def grid_sample_nchw(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """x (B, C, H, W) with B in {1, N}; grid (N, Ho, Wo, 2) float32 in
@@ -21,6 +23,11 @@ def grid_sample_nchw(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     A float32 x goes through F.grid_sample. A half-precision x follows
     the JAX package's arithmetic, one rounding per operation: the lerp
     weights are cast to x's dtype and the interpolation runs in it."""
+    with span("warp"):
+        return _grid_sample_nchw(x, grid)
+
+
+def _grid_sample_nchw(x, grid):
     n = grid.shape[0]
     xs = x.expand(n, *x.shape[1:])
     if x.dtype == grid.dtype:

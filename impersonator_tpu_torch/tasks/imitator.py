@@ -60,6 +60,7 @@ from impersonator_tpu_torch.tasks.renderer import SMPLRenderer
 from impersonator_tpu_torch.utils.cv_utils import resize_img_hwc
 from impersonator_tpu_torch.utils.detectors import (MaskRCNNDetector,
                                                     build_detector)
+from impersonator_tpu_torch.utils.profiling import span
 
 # Random HMR weights send θ far from any body on screen: the ResNet's
 # features grow to ~10^3 through the identity BatchNorms, and fc3 adds
@@ -211,10 +212,11 @@ def imitate_core(nets: ImitatorNets, renderer: SMPLRenderer,
                  compute_dtype=torch.float32):
     """tsf_theta (N, 85), already swapped -> preds (N, S, S, 3) in
     [-1, 1]."""
-    info = smpl_ops.get_details(smpl_params, tsf_theta, parents)
-    fim, t = renderer.render_flow(info["cam"], info["verts"],
-                                  src_state["p2verts"])
-    cond = renderer.encode_fim(fim)
+    with span("imitate.geometry"):
+        info = smpl_ops.get_details(smpl_params, tsf_theta, parents)
+        fim, t = renderer.render_flow(info["cam"], info["verts"],
+                                      src_state["p2verts"])
+        cond = renderer.encode_fim(fim)
     return imitate_from_flow(nets, renderer, src_state, fim, t, cond,
                              front_warp, compute_dtype)
 
@@ -241,12 +243,15 @@ def imitate_from_flow(nets: ImitatorNets, renderer: SMPLRenderer,
     through."""
     tsf_img = grid_sample_nchw(_to_net(src_state["img"], compute_dtype), t)
     tsf_inputs = torch.cat([tsf_img, _to_net(cond, compute_dtype)], dim=1)
-    enc, res = cast_feats(src_state["feats"], compute_dtype)
-    color, mask = nets.generator.inference(enc, res, tsf_inputs, t)
-    color, mask = _from_net(color), _from_net(mask)
-    preds = mask * src_state["bg"] + (1.0 - mask) * color
-    if front_warp:
-        preds = paste_front(renderer, preds, fim, _from_net(tsf_img), mask)
+    with span("imitate.generator"):
+        enc, res = cast_feats(src_state["feats"], compute_dtype)
+        color, mask = nets.generator.inference(enc, res, tsf_inputs, t)
+    with span("imitate.composite"):
+        color, mask = _from_net(color), _from_net(mask)
+        preds = mask * src_state["bg"] + (1.0 - mask) * color
+        if front_warp:
+            preds = paste_front(renderer, preds, fim, _from_net(tsf_img),
+                                mask)
     return preds
 
 
@@ -407,7 +412,8 @@ class Imitator:
             raise RuntimeError("the Imitator's nets have no HMR")
         img = torch.as_tensor(img224, dtype=torch.float32,
                               device=rep.device)
-        return rep.nets.hmr(img)
+        with span("hmr"):
+            return rep.nets.hmr(img)
 
     def personalize(self, src_img, src_smpl=None):
         """src_img (S, S, 3) float in [-1, 1]; src_smpl (85,) θ, or None
@@ -416,9 +422,10 @@ class Imitator:
         once more by ``* 2 - 1``, to [-3, 1]. With a detector, its body
         mask takes the place of the eroded silhouette for the background,
         and is kept for post-tune's refresh."""
-        self._src_body_mask = self._detect(src_img)
-        self.src_info = self._source_state(src_img, src_smpl,
-                                           self._src_body_mask)
+        with span("personalize"):
+            self._src_body_mask = self._detect(src_img)
+            self.src_info = self._source_state(src_img, src_smpl,
+                                               self._src_body_mask)
         return self.src_info
 
     def _detect(self, src_img):
@@ -490,16 +497,17 @@ class Imitator:
         cams = None if hmr else [self.first_cam.to(r.device) for r in reps]
         outs = []
         for chunk in chunks:
-            pieces = [p.to(r.device) for r, p in zip(
-                reps, chunk.split(chunk.shape[0] // len(reps)))]
-            if hmr:
-                pieces = [self.regress_smpl(p, r) for r, p in zip(reps,
-                                                                  pieces)]
-                if cams is None:
-                    self.first_cam = pieces[0][0:1, 0:3]
-                    cams = [self.first_cam.to(r.device) for r in reps]
-            outs += [self._imitate(s, p, c, cam_strategy, r)
-                     for r, s, p, c in zip(reps, srcs, pieces, cams)]
+            with span("imitate.batch"):
+                pieces = [p.to(r.device) for r, p in zip(
+                    reps, chunk.split(chunk.shape[0] // len(reps)))]
+                if hmr:
+                    pieces = [self.regress_smpl(p, r)
+                              for r, p in zip(reps, pieces)]
+                    if cams is None:
+                        self.first_cam = pieces[0][0:1, 0:3]
+                        cams = [self.first_cam.to(r.device) for r in reps]
+                outs += [self._imitate(s, p, c, cam_strategy, r)
+                         for r, s, p, c in zip(reps, srcs, pieces, cams)]
         return torch.cat([o.to(self.device) for o in outs])
 
     def _require_source(self):

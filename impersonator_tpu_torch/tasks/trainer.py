@@ -56,6 +56,7 @@ from impersonator_tpu_torch.ops.sampler import (grid_sample_nchw,
                                                 resize_bilinear_align)
 from impersonator_tpu_torch.parallel.distributed import all_reduce_mean_
 from impersonator_tpu_torch.tasks.renderer import SMPLRenderer
+from impersonator_tpu_torch.utils.profiling import span
 
 
 def _nchw(x):
@@ -390,21 +391,24 @@ def step_nets(state: TrainState, g_loss, d_loss_fn=None,
     ``metrics`` (G's, as given) updated with D's."""
     metrics = dict(metrics or {})
     g_params = list(state.generator.parameters())
-    g_grads = _grads(g_loss, g_params)
+    with span("train.g_grad"):
+        g_grads = _grads(g_loss, g_params)
     d_grads = ()
     if d_loss_fn is not None:
         d_params = list(state.discriminator.parameters())
-        d_loss, d_metrics = d_loss_fn()
-        d_grads = _grads(d_loss, d_params)
+        with span("train.d"):
+            d_loss, d_metrics = d_loss_fn()
+            d_grads = _grads(d_loss, d_params)
         metrics.update(d_metrics)
     if dist.is_initialized():
         names = sorted(metrics)
         values = torch.stack([metrics[k].float() for k in names])
         all_reduce_mean_([*g_grads, *d_grads, values])
         metrics.update(zip(names, values.unbind()))
-    _apply(state.g_opt, g_params, g_grads)
-    if d_loss_fn is not None:
-        _apply(state.d_opt, d_params, d_grads)
+    with span("train.adam"):
+        _apply(state.g_opt, g_params, g_grads)
+        if d_loss_fn is not None:
+            _apply(state.d_opt, d_params, d_grads)
     state.step += 1
     return metrics
 
@@ -412,10 +416,11 @@ def step_nets(state: TrainState, g_loss, d_loss_fn=None,
 def _inputs(trainer, batch):
     images, smpls = batch["images"], batch["smpls"]
     src_img, tsf_img = images[:, 0], images[:, 1]
-    inputs = body_recovery_flow(
-        trainer.renderer, trainer.smpl_params, trainer.assets.parents,
-        src_img, tsf_img, smpls[:, 0], smpls[:, 1],
-        bg_both=trainer.cfg.bg_both)
+    with span("train.body_flow"):
+        inputs = body_recovery_flow(
+            trainer.renderer, trainer.smpl_params, trainer.assets.parents,
+            src_img, tsf_img, smpls[:, 0], smpls[:, 1],
+            bg_both=trainer.cfg.bg_both)
     return inputs, src_img, tsf_img
 
 
@@ -427,8 +432,10 @@ def make_update(trainer: Trainer, train_d: bool = True):
     g_loss_fn, d_loss_fn = make_loss_fns(trainer)
 
     def update(state: TrainState, inputs, src_img, tsf_img):
-        g_loss, (metrics, fake_tsf) = g_loss_fn(
-            state.generator, state.discriminator, inputs, src_img, tsf_img)
+        with span("train.g_loss"):
+            g_loss, (metrics, fake_tsf) = g_loss_fn(
+                state.generator, state.discriminator, inputs, src_img,
+                tsf_img)
         d_fn = (partial(d_loss_fn, state.discriminator, fake_tsf, tsf_img,
                         inputs["input_G_tsf"][:, 3:]) if train_d else None)
         return state, step_nets(state, g_loss, d_fn, metrics)
@@ -462,7 +469,8 @@ def make_train_step(trainer: Trainer, train_d: bool = True,
     update = make_update(trainer, train_d)
 
     def train_step(state: TrainState, batch):
-        return update(state, *_inputs(trainer, batch))
+        with span("train.step"):
+            return update(state, *_inputs(trainer, batch))
 
     return train_step
 

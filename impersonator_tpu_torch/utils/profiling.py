@@ -1,29 +1,58 @@
-"""Profiling and timing (torch port of
-``impersonator_tpu/utils/profiling.py``).
+"""Profiling (torch port of ``impersonator_tpu/utils/profiling.py``).
 
+* :class:`span` — a named stretch of the program's hot paths, seen on the
+  profiler's timeline while a ``torch.profiler`` records, and one flag
+  read otherwise;
 * :func:`trace` — a context manager around ``torch.profiler`` that writes
-  a TensorBoard / Chrome trace into a directory;
-* :class:`StepTimer` — per-phase wall-clock timers with p50 / p95
-  summaries; a phase on a CUDA device synchronises it before each clock
-  read, so the time covers the device's work, not its enqueue;
-* :func:`device_memory_stats` — ``torch.cuda.memory_stats`` of every
-  visible card.
+  a TensorBoard / Chrome trace into a directory, the spans on the host
+  timeline above the kernels they launched.
+
+The spans, by name (dotted, stable): ``personalize``, ``hmr``,
+``imitate.batch`` (holding ``imitate.geometry``, ``imitate.generator``,
+``imitate.composite``), ``warp``; ``train.step`` (holding
+``train.body_flow``, ``train.g_loss``, ``train.g_grad``, ``train.d``,
+``train.adam``).
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
-from collections import defaultdict
 
-import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
+
+
+class span:
+    """``with span("imitate.generator"): ...`` names the block for the
+    profiler. While a profiler records, the block runs inside a
+    ``record_function`` range of that name, whose start and end lie on
+    the profiler's clock with the device activity it launched; otherwise
+    entering and leaving read one flag and do nothing else (no clock, no
+    synchronise)."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self):
+        # torch's own flag, set while any torch.profiler records
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function(self.name)
+            self._range.__enter__()
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
 
 
 @contextlib.contextmanager
 def trace(log_dir: str, device="cuda"):
     """``with profiling.trace('/tmp/trace'): step(...)`` records the host
-    and, on a CUDA device, the card's kernels; yields the profiler."""
+    (the spans among its ops) and, on a CUDA device, the card's kernels;
+    yields the profiler."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -32,45 +61,3 @@ def trace(log_dir: str, device="cuda"):
             on_trace_ready=torch.profiler.tensorboard_trace_handler(
                 log_dir)) as prof:
         yield prof
-
-
-def _sync(device):
-    if device is not None and torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-class StepTimer:
-    def __init__(self):
-        self.samples = defaultdict(list)
-
-    @contextlib.contextmanager
-    def phase(self, name: str, device=None):
-        """Time the block; with a CUDA ``device`` the card is synchronised
-        before the start and the end are read."""
-        _sync(device)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            _sync(device)
-            self.samples[name].append(time.perf_counter() - t0)
-
-    def summary(self) -> dict:
-        out = {}
-        for name, xs in self.samples.items():
-            arr = np.asarray(xs)
-            out[name] = {
-                "count": len(xs),
-                "mean_s": float(arr.mean()),
-                "p50_s": float(np.percentile(arr, 50)),
-                "p95_s": float(np.percentile(arr, 95)),
-            }
-        return out
-
-
-def device_memory_stats() -> dict:
-    """{"cuda:i": memory stats} of every visible card ({} without one)."""
-    if not torch.cuda.is_available():
-        return {}
-    return {f"cuda:{i}": dict(torch.cuda.memory_stats(i))
-            for i in range(torch.cuda.device_count())}

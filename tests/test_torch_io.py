@@ -372,16 +372,18 @@ def test_save_obj_matches_jax(tmp_path):
 
 
 def test_profiling_on_the_cpu(tmp_path):
-    timer = profiling.StepTimer()
-    for _ in range(3):
-        with timer.phase("step", device=CPU):
-            torch.ones(4).sum()
-    assert timer.summary()["step"]["count"] == 3
+    """``trace`` writes a trace that holds the spans opened under it;
+    a span outside it records nothing."""
+    with profiling.span("imitate.batch"):
+        torch.ones(4).sum()
     with profiling.trace(str(tmp_path / "trace"), device=CPU):
-        torch.ones(8).sum()
-    assert any((tmp_path / "trace").iterdir())
-    if not torch.cuda.is_available():
-        assert profiling.device_memory_stats() == {}
+        for _ in range(3):
+            with profiling.span("train.step"):
+                torch.ones(8).sum()
+    (path,) = (tmp_path / "trace").iterdir()
+    text = path.read_text()
+    assert text.count('"name": "train.step"') == 3
+    assert "imitate.batch" not in text
 
 
 # --------------------------------------------------------------------------
