@@ -36,10 +36,25 @@ Phases, each failing the run (exit 1) on any error:
    within 2e-4; ms and device_ms of the kernel and ms of the twin there,
    the kernel's record; the route's device time split into the slot
    build and the kernel;
+3d. the half-precision warp kernel (ops/cuda_warp.py) against its plain
+   twin at the five warps of an imitation batch of 16 at 256² (the source
+   image, 3 channels at 256²; the encoder's 128, 256, 512 channels at
+   128², 64², 32²; the residual blocks' 3,072 at 32²), bf16 and fp16, a
+   batch-1 and a batch-16 source, on random flows with background rows
+   and on phase 3's 16 body flows resized to each stage: equal bit for
+   bit; on the body flows, each warp's device ms under torch.profiler,
+   lone-call ms (CUDA events), the twin's ms, one float32 F.grid_sample
+   with its casts (the library call, which the port does not make), the
+   ms of a forward and x's backward through the kernel's autograd
+   Function and through the twin under autograd, and the byte bound
+   (output written once, grid and source read once); every in-process
+   path's counts include the calls of the warp's twin with a CUDA x,
+   and the run fails unless each path's is 0;
 4. the given-SMPL slice at full width (256², conv_dim 64, 6 res blocks,
    bf16): Imitator.personalize and three 64-frame inference_by_smpls
-   requests at batch 16, with the kernels' launch counts over that run;
-   the float32 master weights the bf16 Imitator was given stay bit for
+   requests at batch 16, with the kernels' launch counts over that run
+   (the warp kernel 5 a batch); the float32
+   master weights the bf16 Imitator was given stay bit for
    bit;
 4b. the image-driven leg at full width: HMR (ResNet-50 at 224², float32,
    TF32 off) + the same generator: personalize(src_img) with no given
@@ -251,10 +266,7 @@ Phases, each failing the run (exit 1) on any error:
    the flow kernel on the CPU's rotated meshes (fim equal to the twin's,
    flow within 1e-5) and the view tail from the CPU's raster (within
    1e-2), DeepFill's output (within 1e-3);
-6. the bf16 warps of one imitation step at batch 16 (the source image
-   and the generator's feature warps), CUDA events: ops.sampler's JAX
-   arithmetic against one float32 F.grid_sample with its casts; then one
-   full-leg request, one view_by_smpls request and one swap under
+6. one full-leg request, one view_by_smpls request and one swap under
    torch.profiler: summed kernel time, the device's idle share of the
    wall time, the largest kernels and the z-buffer kernels' mean device
    time per launch (full tables in chiprun_out/profile_*.txt).
@@ -458,11 +470,11 @@ def median_ms(fn, reps):
     return sorted(times)[len(times) // 2]
 
 
-def device_ms(fn, calls=20):
-    """Median device time of one launch of the z-buffer kernel that fn
-    launches, over `calls` calls under torch.profiler: the kernel's own
-    time, whatever the host does. None when the profiler sees no
-    z-buffer kernel."""
+def device_ms(fn, calls=20, kernel="zbuffer"):
+    """Median device time of one launch of the kernel named ``kernel``
+    that fn launches, over `calls` calls under torch.profiler: the
+    kernel's own time, whatever the host does. None when the profiler
+    sees no such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -473,7 +485,7 @@ def device_ms(fn, calls=20):
         torch.cuda.synchronize()
     times = sorted(e.time_range.elapsed_us() for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and "zbuffer" in e.name)
+                   and kernel in e.name)
     return times[len(times) // 2] / 1e3 if times else None
 
 
@@ -613,13 +625,37 @@ def slots_used(live):
     return int(used.max()) + 1 if used.numel() else 0
 
 
+# calls of the warp's plain twin with a CUDA x, counted by the wrapper
+# that count_twin_on_card installs: every half-precision warp on the card
+# launches the kernel, so each path reads 0
+TWIN_ON_CARD = [0]
+
+
+def count_twin_on_card():
+    from impersonator_tpu_torch.ops import cuda_warp
+    plain = cuda_warp.warp_bilinear_plain
+
+    def counted(x, grid):
+        TWIN_ON_CARD[0] += x.is_cuda
+        return plain(x, grid)
+
+    cuda_warp.warp_bilinear_plain = counted
+
+
 def reset_counts(cr):
+    from impersonator_tpu_torch.ops.cuda_warp import warp_bilinear
     for k in cr.KERNELS:
         k.launches = 0
+    warp_bilinear.launches = TWIN_ON_CARD[0] = 0
 
 
 def read_counts(cr):
-    return {k.__name__: k.launches for k in cr.KERNELS}
+    """The z-buffer kernels' launches, the warp kernel's, and the calls
+    of the warp's twin with a CUDA x."""
+    from impersonator_tpu_torch.ops.cuda_warp import warp_bilinear
+    return {**{k.__name__: k.launches for k in cr.KERNELS},
+            "warp_bilinear": warp_bilinear.launches,
+            "warp_twin_on_card": TWIN_ON_CARD[0]}
 
 
 def body_scene(assets, params, n, dev, rast, smpl_ops):
@@ -888,30 +924,79 @@ def view_coverage(viewer, vwr, euler_to_matrix, yaws):
     return (fim >= 0).float().mean((1, 2)).tolist()
 
 
-def warp_ms(dev, s, batch=16):
-    """Device ms (CUDA events, median of 20) of the bf16 warps of one
-    imitation step at batch 16: the source image (3 channels at s²) and
-    the generator's LWB warps of the batch-1 source features (128, 256
-    and 512 channels at s/2, s/4, s/8; the 6 residual blocks' 3,072 at
-    s/8), through ops.sampler.grid_sample_nchw (the JAX arithmetic in
-    bf16) and through one F.grid_sample in float32 with its casts (the
-    library call). Returns (port ms, library ms) summed over the warps."""
+def warp_kernel_phase(dev, flow, tag):
+    """Phase 3d: the warp kernel against its plain twin, bit for bit, at
+    the five warps of an imitation batch, on random flows in [-1.1, 1.1]
+    with background rows and on ``flow`` (the bodies' flow T, (B, S, S,
+    2)) resized to each stage as the generator resizes it; batch-1 and
+    batch-B sources, bf16 and fp16. Each warp's times and byte bound on
+    the bodies' flow with a bf16 batch-1 source, as the imitation path
+    sends it, and the ms of a forward and backward of x's gradient, the
+    kernel's Function against the twin under autograd. -> (one dict a
+    warp, their sums, the largest |kernel - twin| compared, NaNs where
+    the twin's are)."""
     import torch
     import torch.nn.functional as F
-    from impersonator_tpu_torch.ops.sampler import grid_sample_nchw
+    from impersonator_tpu_torch.ops import cuda_warp as cw
+    from impersonator_tpu_torch.ops.sampler import resize_flow
+    batch, s = flow.shape[0], flow.shape[1]
     g = torch.Generator(device=dev).manual_seed(0)
-    port = lib = 0.0
+    rows, err = [], 0.0
     for c, size in ((3, s), (128, s // 2), (256, s // 4), (512, s // 8),
                     (3072, s // 8)):
-        x = torch.rand((1, c, size, size), generator=g, device=dev) \
-            .to(torch.bfloat16)
-        grid = torch.rand((batch, size, size, 2), generator=g,
-                          device=dev) * 2.2 - 1.1
-        port += median_ms(lambda: grid_sample_nchw(x, grid), 20)
-        lib += median_ms(lambda: F.grid_sample(
-            x.float().expand(batch, -1, -1, -1), grid, mode="bilinear",
-            padding_mode="zeros", align_corners=True).to(x.dtype), 20)
-    return port, lib
+        x = torch.randn((1, c, size, size), generator=g,
+                        device=dev).to(torch.bfloat16)
+        noise = torch.rand((batch, size, size, 2), generator=g,
+                           device=dev) * 2.2 - 1.1
+        noise[0, :size // 4] = -2.0
+        grid = resize_flow(flow, size, size)
+        for src in (x, x.expand(batch, -1, -1, -1).contiguous()):
+            for dt in (torch.bfloat16, torch.float16):
+                for gr in (noise, grid):
+                    got = cw.warp_bilinear(src.to(dt), gr)
+                    want = cw.warp_bilinear_plain(src.to(dt), gr)
+                    check(torch.equal(got.view(torch.int16),
+                                      want.view(torch.int16)),
+                          f"warp kernel differs from its twin at {c} x "
+                          f"{size}^2, source batch {src.shape[0]}, {dt}")
+                    nan = want.isnan()
+                    check(torch.equal(got.isnan(), nan), "NaNs differ")
+                    err = max(err, float((got.float() - want.float())[~nan]
+                                         .abs().max()))
+
+        def kern():
+            return cw.warp_bilinear(x, grid)
+
+        def grad_ms(fn):
+            xg = x.detach().requires_grad_(True)
+            go = torch.ones((batch, c, size, size), dtype=x.dtype,
+                            device=dev)
+            return median_ms(lambda: torch.autograd.grad(fn(xg, grid), xg,
+                                                         go), 10)
+
+        out_bytes = batch * c * size * size * x.element_size()
+        rows.append({
+            "channels": c, "size": size,
+            "device_ms": device_ms(kern, kernel="warp_bilinear"),
+            "ms": median_ms(kern, 50),
+            "plain_ms": median_ms(lambda: cw.warp_bilinear_plain(x, grid),
+                                  20),
+            "library_ms": median_ms(lambda: F.grid_sample(
+                x.float().expand(batch, -1, -1, -1), grid, mode="bilinear",
+                padding_mode="zeros", align_corners=True).to(x.dtype), 20),
+            "grad_ms": grad_ms(cw.warp_bilinear),
+            "plain_grad_ms": grad_ms(cw.warp_bilinear_plain),
+            "bound_ms": bound(0, nbytes(x, grid) + out_bytes)[0]})
+    total = {k: sum(r[k] for r in rows) if all(r[k] is not None
+                                               for r in rows) else None
+             for k in ("device_ms", "ms", "plain_ms", "library_ms",
+                       "grad_ms", "plain_grad_ms", "bound_ms")}
+    print(f"warp kernel vs plain twin, the 5 warps of an imitation batch "
+          f"(batch {batch}, {s}^2), random and body flows, bf16 and fp16, "
+          f"batch-1 and batch-{batch} sources: equal bit for bit (largest "
+          f"|difference| {err}); on the body flows per warp {rows}; summed "
+          f"{total} {tag}", flush=True)
+    return rows, total, err
 
 
 def tensor_gaps(a, b):
@@ -3876,6 +3961,7 @@ def main():
     from impersonator_tpu_torch.tasks import imitator as imi
     from impersonator_tpu_torch.tasks.renderer import SMPLRenderer
     from impersonator_tpu_torch.scenes import degenerate_scene
+    count_twin_on_card()
 
     dev = torch.device("cuda")
     smi = gpu_line()
@@ -4082,6 +4168,12 @@ def main():
               f"{split[1] / (split[0] + split[1]):.3f} of the route, batch "
               f"16 at 256^2 {tag}", flush=True)
 
+    # -- phase 3d: the warp kernel vs its plain twin ------------------------
+    lap("3d")
+    # the 16 bodies' flow T, as phase 3's kernel computed it
+    body_flow = cr.zbuffer_bucket_flow(*body_in[:4], *body_in[4])[1]
+    warp_rows, warp_total, warp_err = warp_kernel_phase(dev, body_flow, tag)
+
     # -- phase 4: the slice at full width ----------------------------------
     lap("4")
     cfg = TestConfig(image_size=GEOM["s"], repeat_num=6)
@@ -4097,12 +4189,17 @@ def main():
     (pers_s,), src_info = requests(lambda: imit.personalize(
         src_img, src_smpl=thetas[0]), 1)
     rows_after_pers = cr.zbuffer_bucket_rows.launches
+    warps_after_pers = read_counts(cr)["warp_bilinear"]
     req_s, preds = requests(lambda: imit.inference_by_smpls(req_thetas,
                                                             batch=16))
     launches = read_counts(cr)
     check(rows_after_pers >= 1, "personalize launched no rows kernel")
     check(launches["zbuffer_bucket_flow"] == 3 * 4,
           f"flow kernel launches {launches['zbuffer_bucket_flow']} != 12")
+    # 5 warps a batch of 16: the source image's and the generator's 4
+    check(launches["warp_bilinear"] - warps_after_pers == 3 * 4 * 5,
+          f"warp launches {launches} ({warps_after_pers} in personalize), "
+          f"expected 60 in 12 batches")
     check(tuple(preds.shape) == (64, GEOM["s"], GEOM["s"], 3),
           f"preds shape {tuple(preds.shape)}")
     check(bool(torch.isfinite(preds).all()), "non-finite preds")
@@ -4455,12 +4552,6 @@ def main():
 
     # -- phase 6: where a full-leg request's device time goes --------------
     lap("6")
-    w_port, w_lib = warp_ms(dev, GEOM["s"])
-    print(f"warps of one imitation step (batch 16, bf16, 256^2: the source "
-          f"image and the LWB feature warps): {w_port:.4f} ms in the JAX "
-          f"arithmetic (ops.sampler), {w_lib:.4f} ms through F.grid_sample "
-          f"in float32 with its casts (CUDA events, sums of medians) {tag}",
-          flush=True)
     wall, kern, rows = profile_request(
         lambda: imit_h.inference(tgt_imgs, batch=16),
         Path("chiprun_out") / "profile_full_leg.txt")
@@ -4528,6 +4619,21 @@ def main():
             ("zbuffer_bucket_rows", "zbuffer_bucket.cu", 365),
             ("zbuffer_bucket_flow", "zbuffer_bucket.cu", 413),
             ("zbuffer_tiles", "zbuffer_tiles.cu", 146))]}
+    # the warp kernel replaces no TPU kernel; its launches on the full leg
+    # (4b) and on each in-process path, where no CUDA warp ran the twin
+    warp_paths = {p: c for p, c in by_path.items() if "warp_bilinear" in c}
+    check(all(c["warp_twin_on_card"] == 0 for c in warp_paths.values()),
+          f"a path ran the warp's twin on the card: {warp_paths}")
+    record["kernels"].append({
+        "name": "warp_bilinear", "route": "cuda",
+        "source": "impersonator_tpu_torch/csrc/warp_bilinear.cu",
+        "replaces": None, "launches": launches_h["warp_bilinear"],
+        "launches_by_path": {p: c["warp_bilinear"]
+                             for p, c in warp_paths.items()},
+        "max_abs_err": warp_err, **{k: warp_total[k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
+        "device_ms_by": "profiler", "bound_by": "bytes",
+        "by_warp": warp_rows})
     check(all(k["launches"] > 0 for k in record["kernels"]),
           f"a kernel never launched on its path: {path_launches}")
     lap(None)

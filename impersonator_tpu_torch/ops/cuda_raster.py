@@ -14,7 +14,8 @@ Counterparts of the Pallas TPU kernels of
 
 Every ``csrc/*.cu`` is compiled for ``sm_90a`` by nvcc at first use into
 ``_build/`` (one shared library per source, all sources at once) and
-loaded with ctypes.
+loaded with ctypes; :func:`library` hands the entry points to the other
+wrappers (``ops/cuda_warp.py``'s ``csrc/warp_bilinear.cu``).
 
 Bucket inputs (the layout ``_bucket_sort`` emits):
 
@@ -63,7 +64,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
               "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 # the C entry points of each source and their argument types
 SYMBOLS = {
     "zbuffer_bucket.cu": {
@@ -75,6 +76,12 @@ SYMBOLS = {
     "zbuffer_tiles.cu": {
         "zbuffer_tiles": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                           _P],
+    },
+    # ops/cuda_warp.py's kernel
+    "warp_bilinear.cu": {
+        name: [_P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+               _L, _L, _P]
+        for name in ("warp_bilinear_bf16", "warp_bilinear_f16")
     },
 }
 
@@ -162,6 +169,11 @@ def _build_and_load():
             fn.restype = ctypes.c_int
             setattr(lib, sym, fn)
     return lib, "".join(logs)
+
+
+def library() -> SimpleNamespace:
+    """Every csrc/*.cu's entry points, built and loaded on first use."""
+    return _LIBRARY.get()
 
 
 def build() -> str:

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from impersonator_tpu_torch.ops.cuda_warp import warp_bilinear
 from impersonator_tpu_torch.utils.profiling import span
 
 
@@ -22,42 +23,16 @@ def grid_sample_nchw(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
 
     A float32 x goes through F.grid_sample. A half-precision x follows
     the JAX package's arithmetic, one rounding per operation: the lerp
-    weights are cast to x's dtype and the interpolation runs in it."""
+    weights are cast to x's dtype and the interpolation runs in it
+    (:func:`ops.cuda_warp.warp_bilinear`: the hand-written kernel on a
+    CUDA device, its plain twin on the CPU; both give the same bits and
+    the same gradients)."""
     with span("warp"):
-        return _grid_sample_nchw(x, grid)
-
-
-def _grid_sample_nchw(x, grid):
-    n = grid.shape[0]
-    xs = x.expand(n, *x.shape[1:])
-    if x.dtype == grid.dtype:
-        return F.grid_sample(xs, grid, mode="bilinear", padding_mode="zeros",
-                             align_corners=True)
-    _, c, h, w = xs.shape
-    ho, wo = grid.shape[1], grid.shape[2]
-    fx = (grid[..., 0] + 1.0) * 0.5 * (w - 1)
-    fy = (grid[..., 1] + 1.0) * 0.5 * (h - 1)
-    x0, y0 = fx.floor(), fy.floor()
-    tx = (fx - x0).to(x.dtype)[:, None]
-    ty = (fy - y0).to(x.dtype)[:, None]
-    flat = xs.reshape(n, c, h * w)          # a view: (h, w) stay adjacent
-    # the four corners (x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1,
-    # y0 + 1) in one gather; a corner outside the image counts 0
-    xc = torch.stack([x0, x0 + 1, x0, x0 + 1], 1)
-    yc = torch.stack([y0, y0, y0 + 1, y0 + 1], 1)
-    valid = (xc >= 0) & (xc <= w - 1) & (yc >= 0) & (yc <= h - 1)
-    lin = yc.clamp(0, h - 1).long() * w + xc.clamp(0, w - 1).long()
-    idx = lin.reshape(n, 1, 4 * ho * wo).expand(n, c, 4 * ho * wo)
-    v00, v01, v10, v11 = torch.gather(flat, 2, idx).reshape(
-        n, c, 4, ho, wo).unbind(2)
-    # JAX masks the corner values, (v · valid) · weight; masking the
-    # (N, 1, Ho, Wo) weight instead, v · (weight · valid), rounds to the
-    # same bf16 value and the same signed zero, with no full-size pass
-    valid = valid.to(x.dtype)
-    a, b = 1 - tx, 1 - ty
-    top = v00 * (a * valid[:, 0:1]) + v01 * (tx * valid[:, 1:2])
-    bot = v10 * (a * valid[:, 2:3]) + v11 * (tx * valid[:, 3:4])
-    return top * b + bot * ty
+        if x.dtype == grid.dtype:
+            return F.grid_sample(x.expand(grid.shape[0], *x.shape[1:]), grid,
+                                 mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
+        return warp_bilinear(x, grid)
 
 
 def grid_sample(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:

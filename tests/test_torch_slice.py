@@ -105,6 +105,7 @@ def test_imitation_slice_matches_jax(assets):
 PORT_MODULES = [
     "impersonator_tpu_torch",
     "impersonator_tpu_torch.ops.cuda_raster",
+    "impersonator_tpu_torch.ops.cuda_warp",
     "impersonator_tpu_torch.ops.flow",
     "impersonator_tpu_torch.ops.morphology",
     "impersonator_tpu_torch.ops.projection",
