@@ -26,6 +26,9 @@ import torch.distributed as dist
 
 from impersonator_tpu_torch.parallel.mesh import Mesh, make_mesh, to_device
 
+# bytes that all_reduce_mean_ has reduced since the process started
+reduced_bytes = 0
+
 
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
@@ -95,7 +98,9 @@ def process_local_slice(n_items: int) -> slice:
 def all_reduce_mean_(tensors) -> None:
     """Replace each tensor by its mean over the process group, in place:
     one flattened bucket per (device, dtype), all-reduced by sum, then
-    divided by the world size. Nothing happens without a process group."""
+    divided by the world size. Nothing happens without a process group.
+    Adds each bucket's bytes to :data:`reduced_bytes`."""
+    global reduced_bytes
     if not dist.is_initialized():
         return
     n = dist.get_world_size()
@@ -104,6 +109,7 @@ def all_reduce_mean_(tensors) -> None:
         buckets.setdefault((t.device, t.dtype), []).append(t)
     for group in buckets.values():
         flat = torch.cat([t.reshape(-1) for t in group])
+        reduced_bytes += flat.numel() * flat.element_size()
         dist.all_reduce(flat, op=dist.ReduceOp.SUM)
         flat.div_(n)
         for t, v in zip(group, flat.split([t.numel() for t in group])):

@@ -12,13 +12,25 @@ weights with Adam (β 0.5 / 0.999) on
 the task's compute-dtype copy is rebuilt from the tuned master and the
 source is personalised again.
 
-All of it runs in float32 (the JAX tune step applies the float32
-params); the convolutions follow the process's TF32 flags. The pair
-batch is built once, without gradients; the backward pass goes through
-the generator, the warps and the losses only. The face loss detaches its
+All of it runs in full float32, TF32 off whatever the process's flags
+(``utils.precision.full_fp32``): the published PyTorch code predates
+TF32, and the JAX tune step applies the float32 params. The pair batch
+and the tune steps run PyTorch's own convolutions, not cuDNN's, whose
+float32 engine for one of the generator's shapes is ~300× slower
+(``utils.precision.without_cudnn``). The pair batch
+is built once, without gradients; the backward pass goes through the
+generator, the warps and the losses only. The face loss detaches its
 second image's features, and its first images are the source and the
 untuned preds, so (as in the JAX package) it adds to the loss but sends
 no gradient to the generator.
+
+Spans (``utils.profiling.span``): ``posttune`` holds a whole
+:func:`adaptive_personalize`, ``posttune.pairs`` its
+:func:`build_meta_pairs`, ``posttune.step`` each tune step (the
+minibatch, forward, backward, Adam and the loss read back),
+``posttune.refresh`` the compute copy's rebuild and the second
+personalise. Counters, over every task's tune: :data:`steps` (Adam
+updates) and :data:`pairs` (pairs built).
 """
 
 from __future__ import annotations
@@ -33,6 +45,12 @@ from impersonator_tpu_torch.ops import morphology
 from impersonator_tpu_torch.ops import smpl as smpl_ops
 from impersonator_tpu_torch.ops.sampler import grid_sample
 from impersonator_tpu_torch.tasks import imitator as imitator_mod
+from impersonator_tpu_torch.utils.precision import full_fp32, without_cudnn
+from impersonator_tpu_torch.utils.profiling import span
+
+# tune steps taken and pairs built since the process started
+steps = 0
+pairs = 0
 
 
 def load_prior_poses(path: str) -> torch.Tensor:
@@ -71,11 +89,13 @@ def build_meta_pairs(imit, prior_smpls, src_info=None) -> dict:
     -> pose) and T_cycle (pose -> source) come from the raster products,
     and ``init_preds``, the untuned generator's imitation in float32 with
     the master (``zbuffer_bucket_flow``), anchors the structure loss."""
+    global pairs
     src = imit.src_info if src_info is None else src_info
     renderer = imit.renderer
     prior_smpls = torch.as_tensor(prior_smpls, dtype=torch.float32,
                                   device=src["img"].device)
     n = prior_smpls.shape[0]
+    pairs += n
 
     def rep(x):
         return x.expand(n, *x.shape[1:])
@@ -174,6 +194,8 @@ def make_tune_step(imit, optimizer, face=None, front_warp: bool = False,
     gen = imit.nets.generator
 
     def step(batch, bg):
+        global steps
+        steps += 1
         optimizer.zero_grad(set_to_none=True)
         total, metrics = tune_loss(gen, imit.renderer, batch, bg, face,
                                    front_warp, use_face)
@@ -203,6 +225,40 @@ def _finish(task):
     task.refresh_compute_nets()
 
 
+def _tune_epochs(step, batch: dict, bg, epochs: int, batch_size: int,
+                 seed: int, verbose: bool):
+    """``epochs`` × ceil(n / batch) tune steps over a fresh numpy
+    permutation of the n pairs each epoch, the last minibatch
+    wrap-padded from the permutation's start -> (the last step's
+    losses, each epoch's mean cycle loss, the steps taken)."""
+    n = batch["T"].shape[0]
+    bg = bg.expand(n, *bg.shape[1:])
+    bs = min(batch_size, n)
+    rng = np.random.default_rng(seed)
+    cyc_history, n_steps = [], 0
+    for epoch in range(epochs):
+        perm = rng.permutation(n)
+        epoch_cyc = []
+        for k in range(-(-n // bs)):
+            with span("posttune.step"):
+                idx = perm[k * bs:(k + 1) * bs]
+                if len(idx) < bs:
+                    idx = np.concatenate([idx, perm[:bs - len(idx)]])
+                idx = torch.as_tensor(idx, device=bg.device)
+                # pseudo_masks stacks the source rows, then the pose rows
+                mb = {key: (v[torch.cat([idx, idx + n])]
+                            if key == "pseudo_masks" else v[idx])
+                      for key, v in batch.items()}
+                metrics = step(mb, bg[idx])
+                epoch_cyc.append(float(metrics["cyc"]))
+            n_steps += 1
+        cyc_history.append(float(np.mean(epoch_cyc)))
+        if verbose:
+            print(f"post_tune epoch {epoch}: " + " ".join(
+                f"{k}={float(v):.4f}" for k, v in metrics.items()))
+    return metrics, cyc_history, n_steps
+
+
 def adaptive_personalize(imit, prior_smpls=None, prior_poses_path=None,
                          epochs: int = 5, lr: float = 2e-4,
                          batch_size: int = 4, use_face: bool | None = None,
@@ -228,41 +284,24 @@ def adaptive_personalize(imit, prior_smpls=None, prior_poses_path=None,
         prior_smpls = load_prior_poses(prior_poses_path)
     if prior_smpls is None:
         prior_smpls = default_prior_poses(imit.src_info["theta"])
-    batch = build_meta_pairs(imit, prior_smpls)
-    n = batch["T"].shape[0]
-    bg = imit.src_info["bg"].expand(n, *imit.src_info["bg"].shape[1:])
-    opt = tune_optimizer(imit.nets.generator, lr)
-    step = make_tune_step(imit, opt, face, front_warp=imit.cfg.front_warp,
-                          use_face=use_face)
-
-    bs = min(batch_size, n)
-    steps_per_epoch = -(-n // bs)
-    rng = np.random.default_rng(seed)
-    cyc_history, n_steps = [], 0
-    for epoch in range(epochs):
-        perm = rng.permutation(n)
-        epoch_cyc = []
-        for k in range(steps_per_epoch):
-            idx = perm[k * bs:(k + 1) * bs]
-            if len(idx) < bs:
-                idx = np.concatenate([idx, perm[:bs - len(idx)]])
-            idx = torch.as_tensor(idx, device=bg.device)
-            # pseudo_masks stacks the source rows, then the pose rows
-            mb = {key: (v[torch.cat([idx, idx + n])]
-                        if key == "pseudo_masks" else v[idx])
-                  for key, v in batch.items()}
-            metrics = step(mb, bg[idx])
-            epoch_cyc.append(float(metrics["cyc"]))
-            n_steps += 1
-        cyc_history.append(float(np.mean(epoch_cyc)))
-        if verbose:
-            print(f"post_tune epoch {epoch}: " + " ".join(
-                f"{k}={float(v):.4f}" for k, v in metrics.items()))
-    _finish(imit)
-    # the detector's mask of the first personalisation, if there was one
-    imit.src_info = imit._source_state(imit.src_info["img"][0],
-                                       imit.src_info["theta"][0],
-                                       imit._src_body_mask)
+    with span("posttune"), full_fp32():
+        with without_cudnn():
+            with span("posttune.pairs"):
+                batch = build_meta_pairs(imit, prior_smpls)
+            opt = tune_optimizer(imit.nets.generator, lr)
+            step = make_tune_step(imit, opt, face,
+                                  front_warp=imit.cfg.front_warp,
+                                  use_face=use_face)
+            metrics, cyc_history, n_steps = _tune_epochs(
+                step, batch, imit.src_info["bg"], epochs, batch_size, seed,
+                verbose)
+        with span("posttune.refresh"):
+            _finish(imit)
+            # the detector's mask of the first personalisation, if there
+            # was one
+            imit.src_info = imit._source_state(imit.src_info["img"][0],
+                                               imit.src_info["theta"][0],
+                                               imit._src_body_mask)
     out = {k: float(v) for k, v in metrics.items()}
     out["cyc_history"] = cyc_history
     out["n_steps"] = n_steps
@@ -306,18 +345,22 @@ def post_tune_swapper(swapper, iters: int = 50, lr: float = 2e-4,
     if swapper.src_info is None or swapper.tsf_info is None:
         raise RuntimeError("call swap_setup() first")
     src, tgt = swapper.src_info, swapper.tsf_info
-    batch = merge_pair_batches(build_meta_pairs(swapper, tgt["theta"], src),
-                               build_meta_pairs(swapper, src["theta"], tgt))
-    bg = torch.cat([src["bg"], tgt["bg"]], 0)
-    opt = tune_optimizer(swapper.nets.generator, lr)
-    step = make_tune_step(swapper, opt, use_face=False,
-                          front_warp=swapper.cfg.front_warp)
-    for i in range(iters):
-        for group in opt.param_groups:
-            group["lr"] = swapper_tune_lr(i, init_lr=lr, total_iters=iters)
-        metrics = step(batch, bg)
-        if verbose and i % 10 == 0:
-            print(f"swap post_tune {i}: total={float(metrics['total']):.4f}")
+    with full_fp32(), without_cudnn():
+        batch = merge_pair_batches(
+            build_meta_pairs(swapper, tgt["theta"], src),
+            build_meta_pairs(swapper, src["theta"], tgt))
+        bg = torch.cat([src["bg"], tgt["bg"]], 0)
+        opt = tune_optimizer(swapper.nets.generator, lr)
+        step = make_tune_step(swapper, opt, use_face=False,
+                              front_warp=swapper.cfg.front_warp)
+        for i in range(iters):
+            for group in opt.param_groups:
+                group["lr"] = swapper_tune_lr(i, init_lr=lr,
+                                              total_iters=iters)
+            metrics = step(batch, bg)
+            if verbose and i % 10 == 0:
+                print(f"swap post_tune {i}: "
+                      f"total={float(metrics['total']):.4f}")
     _finish(swapper)
     swapper.src_info = swapper.personalize(src["img"][0], src["theta"][0])
     swapper.tsf_info = swapper.personalize(tgt["img"][0], tgt["theta"][0])

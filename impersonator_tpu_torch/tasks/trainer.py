@@ -401,10 +401,11 @@ def step_nets(state: TrainState, g_loss, d_loss_fn=None,
             d_grads = _grads(d_loss, d_params)
         metrics.update(d_metrics)
     if dist.is_initialized():
-        names = sorted(metrics)
-        values = torch.stack([metrics[k].float() for k in names])
-        all_reduce_mean_([*g_grads, *d_grads, values])
-        metrics.update(zip(names, values.unbind()))
+        with span("train.allreduce"):
+            names = sorted(metrics)
+            values = torch.stack([metrics[k].float() for k in names])
+            all_reduce_mean_([*g_grads, *d_grads, values])
+            metrics.update(zip(names, values.unbind()))
     with span("train.adam"):
         _apply(state.g_opt, g_params, g_grads)
         if d_loss_fn is not None:

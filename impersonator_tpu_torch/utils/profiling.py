@@ -11,7 +11,9 @@ The spans, by name (dotted, stable): ``personalize``, ``hmr``,
 ``imitate.batch`` (holding ``imitate.geometry``, ``imitate.generator``,
 ``imitate.composite``), ``warp``; ``train.step`` (holding
 ``train.body_flow``, ``train.g_loss``, ``train.g_grad``, ``train.d``,
-``train.adam``).
+``train.allreduce`` under a process group, ``train.adam``);
+``posttune`` (holding ``posttune.pairs``, ``posttune.step``,
+``posttune.refresh``).
 """
 
 from __future__ import annotations

@@ -2,13 +2,17 @@
 never enters torch's profiler and the frames are the same bits as under
 one; recording, the profile holds the documented spans, nested and
 counted as ``utils/profiling.py`` lists them, in the imitation path
-(64², conv_dim 8, batch 2) and in the train step."""
+(64², conv_dim 8, batch 2), in post-tune, and in the train step, alone
+and in a process group (gloo, one process); post-tune's and the
+all-reduce's counters move with them."""
 
 import math
+import socket
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.profiler import ProfilerActivity, profile
 
@@ -18,7 +22,9 @@ from impersonator_tpu_torch.config import TrainConfig
 from impersonator_tpu_torch.data.datasets import SyntheticPairDataset
 from impersonator_tpu_torch.data.loader import _collate, stage_batch
 from impersonator_tpu_torch.models.generator import ImpersonatorGenerator
+from impersonator_tpu_torch.parallel import distributed as PD
 from impersonator_tpu_torch.tasks import imitator as TI
+from impersonator_tpu_torch.tasks import post_tune as TP
 from impersonator_tpu_torch.tasks import trainer as TT
 from impersonator_tpu_torch.utils import profiling
 
@@ -28,7 +34,8 @@ S, CONV_DIM, REPEAT, BATCH = 64, 8, 2, 2
 SPANS = {"personalize", "hmr", "imitate.batch", "imitate.geometry", "warp",
          "imitate.generator", "imitate.composite", "train.step",
          "train.body_flow", "train.g_loss", "train.g_grad", "train.d",
-         "train.adam"}
+         "train.allreduce", "train.adam", "posttune", "posttune.pairs",
+         "posttune.step", "posttune.refresh"}
 TRAIN = ["train.body_flow", "train.g_loss", "train.g_grad", "train.d",
          "train.adam"]
 
@@ -198,3 +205,68 @@ def test_train_step_spans_in_order():
     for name in TRAIN:
         assert len(named(ranges, name)) == 2
     assert state.step == 2
+
+
+def test_posttune_spans_nest_and_count(inputs):
+    torch.manual_seed(2)
+    imit = TI.Imitator(TConfig(image_size=S, repeat_num=REPEAT,
+                               compute_dtype="float32"),
+                       assets=tassets.synthetic_assets(),
+                       nets=TI.ImitatorNets(ImpersonatorGenerator(
+                           conv_dim=CONV_DIM, repeat_num=REPEAT)),
+                       device="cpu")
+    src_img, theta, _, _ = inputs
+    imit.personalize(src_img, theta)
+    priors = TP.default_prior_poses(imit.src_info["theta"], n=3)
+    steps0, pairs0 = TP.steps, TP.pairs
+    out, ranges = recorded(lambda: TP.adaptive_personalize(
+        imit, priors, epochs=2, batch_size=2))
+    assert out["n_steps"] == 4                  # 2 epochs x ceil(3 / 2)
+    assert (TP.steps - steps0, TP.pairs - pairs0) == (4, 3)
+    (whole,) = named(ranges, "posttune")
+    for name, n in (("posttune.pairs", 1), ("posttune.step", 4),
+                    ("posttune.refresh", 1)):
+        assert len(named(ranges, name)) == n, name
+        assert len(inside(ranges, whole, name)) == n, name
+    kids = [r[0] for r in inside(ranges, whole)
+            if r[0].startswith("posttune.")]
+    assert kids == (["posttune.pairs"] + ["posttune.step"] * 4
+                    + ["posttune.refresh"])
+
+
+def test_allreduce_span_and_counter_in_a_process_group():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        cfg = TrainConfig(image_size=S, repeat_num=REPEAT,
+                          batch_size=BATCH, d_layers=2)
+        trainer = TT.build_trainer(cfg, tassets.synthetic_assets(),
+                                   device="cpu")
+        torch.manual_seed(1)
+        state = trainer.init_state(generator=ImpersonatorGenerator(
+            conv_dim=CONV_DIM, repeat_num=REPEAT))
+        step = TT.make_train_step(trainer, train_d=True)
+        ds = SyntheticPairDataset(S, seed=0)
+        batch = stage_batch(_collate([ds[0], ds[1]]), "cpu")
+        before = PD.reduced_bytes
+
+        def two_steps():
+            for _ in range(2):
+                step(state, batch)
+
+        _, ranges = recorded(two_steps)
+    finally:
+        dist.destroy_process_group()
+    order = TRAIN[:4] + ["train.allreduce"] + TRAIN[4:]
+    steps = named(ranges, "train.step")
+    assert len(steps) == 2
+    for s in steps:
+        assert [r[0] for r in inside(ranges, s) if r[0] in order] == order
+    params = sum(p.numel() for net in (state.generator, state.discriminator)
+                 for p in net.parameters())
+    # one float32 bucket a step: every gradient, then the step's metrics
+    metrics = (PD.reduced_bytes - before) / 2 / 4 - params
+    assert metrics == int(metrics) and 1 <= metrics <= 64
