@@ -14,10 +14,12 @@ source is personalised again.
 
 All of it runs in full float32, TF32 off whatever the process's flags
 (``utils.precision.full_fp32``): the published PyTorch code predates
-TF32, and the JAX tune step applies the float32 params. The pair batch
-and the tune steps run PyTorch's own convolutions, not cuDNN's, whose
-float32 engine for one of the generator's shapes is ~300× slower
-(``utils.precision.without_cudnn``). The pair batch
+TF32, and the JAX tune step applies the float32 params. In the pair
+batch and the tune steps cuDNN is off but for the convolutions, each
+pass of which runs on cuDNN or on PyTorch's own kernels, whichever was
+measured faster for its shape (``ops.conv_route.float32_convs``): cuDNN's
+float32 engine for one of the generator's shapes is ~300× slower than
+PyTorch's, and most others are faster on cuDNN. The pair batch
 is built once, without gradients; the backward pass goes through the
 generator, the warps and the losses only. The face loss detaches its
 second image's features, and its first images are the source and the
@@ -43,9 +45,10 @@ import torch
 from impersonator_tpu_torch.models import losses as L
 from impersonator_tpu_torch.ops import morphology
 from impersonator_tpu_torch.ops import smpl as smpl_ops
+from impersonator_tpu_torch.ops.conv_route import float32_convs
 from impersonator_tpu_torch.ops.sampler import grid_sample
 from impersonator_tpu_torch.tasks import imitator as imitator_mod
-from impersonator_tpu_torch.utils.precision import full_fp32, without_cudnn
+from impersonator_tpu_torch.utils.precision import full_fp32
 from impersonator_tpu_torch.utils.profiling import span
 
 # tune steps taken and pairs built since the process started
@@ -285,7 +288,7 @@ def adaptive_personalize(imit, prior_smpls=None, prior_poses_path=None,
     if prior_smpls is None:
         prior_smpls = default_prior_poses(imit.src_info["theta"])
     with span("posttune"), full_fp32():
-        with without_cudnn():
+        with float32_convs():
             with span("posttune.pairs"):
                 batch = build_meta_pairs(imit, prior_smpls)
             opt = tune_optimizer(imit.nets.generator, lr)
@@ -345,7 +348,7 @@ def post_tune_swapper(swapper, iters: int = 50, lr: float = 2e-4,
     if swapper.src_info is None or swapper.tsf_info is None:
         raise RuntimeError("call swap_setup() first")
     src, tgt = swapper.src_info, swapper.tsf_info
-    with full_fp32(), without_cudnn():
+    with full_fp32(), float32_convs():
         batch = merge_pair_batches(
             build_meta_pairs(swapper, tgt["theta"], src),
             build_meta_pairs(swapper, src["theta"], tgt))
