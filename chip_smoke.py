@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Bring-up check of the PyTorch/CUDA port (impersonator_tpu_torch) on
-one NVIDIA GPU. Run from the repository root:
+"""The card's check harness for the PyTorch/CUDA port
+(impersonator_tpu_torch) on one NVIDIA GPU: every path against its plain
+twin or the CPU, with launch counts, and no timing (the benchmark,
+``lwg_bench/run.py``, measures). Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -8,58 +10,44 @@ Phases, each failing the run (exit 1) on any error:
 
 1. needs torch.cuda; prints the card's name and power limit;
 2. builds the hand-written kernels with nvcc, every csrc/*.cu at once,
-   and beside them the image codec (csrc/host_codec.cpp against nvJPEG
-   and zlib; build seconds);
+   loads their entry points, and beside them builds the image codec
+   (csrc/host_codec.cpp against nvJPEG and zlib);
 3. bucket kernels vs their plain twins on the card at 256² on the
    12,880-face synthetic body: 16 poses, plus a random scene with one
    oversized front face, a scene behind the far plane and a degenerate
    scene (equal vertices on pixel centres, collinear faces, slivers: the
    pairs the kernels' warp cull must keep, tests/test_torch_cuda.py);
    fim equal, weights <= 2e-4, flow <= 1e-5; the share of (warp, face)
-   pairs the cull keeps on the bodies (its plain mirror); ms of the twin
-   and of the kernel at batch 16: the median of CUDA events around a
-   lone call (the record's ms, as the earlier records timed it; it also
-   counts the host's launch), and the median device time of one launch
-   under torch.profiler (device_ms);
+   pairs the cull keeps on the bodies (its plain mirror);
 3b. zbuffer_tiles vs its plain twin at the renderer's tile_params()
    point (tile 8, cap 288, span 3 at 256²) on the same 16 bodies, the
    random + oversized scene, the behind-far scene, 3,000 small faces
    at cap 4, where both drop the same candidates, and the tie scene
    (scenes.tie_scene: coplanar faces of equal depth on both sides of the
    kernel's share boundaries); fim equal, weights <= 2e-4; its fim on the
-   bodies equals zbuffer_bucket_rows'; tile stats; ms and device_ms of
-   the kernel, ms of the twin, on the bodies (a shape the renderer does
-   not send it);
+   bodies equals zbuffer_bucket_rows'; tile stats;
 3c. the renderer's tiled route: render_fim_wim on 16 posed 63,480-face
    bodies launches zbuffer_tiles; on those slots, and on the tie scene
    at batch 16, the kernel's fim equals the twin's and its weights are
-   within 2e-4; ms and device_ms of the kernel and ms of the twin there,
-   the kernel's record; the route's device time split into the slot
-   build and the kernel;
+   within 2e-4;
 3d. the half-precision warp kernel (ops/cuda_warp.py) against its plain
    twin at the five warps of an imitation batch of 16 at 256² (the source
    image, 3 channels at 256²; the encoder's 128, 256, 512 channels at
    128², 64², 32²; the residual blocks' 3,072 at 32²), bf16 and fp16, a
    batch-1 and a batch-16 source, on random flows with background rows
    and on phase 3's 16 body flows resized to each stage: equal bit for
-   bit; on the body flows, each warp's device ms under torch.profiler,
-   lone-call ms (CUDA events), the twin's ms, one float32 F.grid_sample
-   with its casts (the library call, which the port does not make), the
-   ms of a forward and x's backward through the kernel's autograd
-   Function and through the twin under autograd, and the byte bound
-   (output written once, grid and source read once); every in-process
+   bit; every in-process
    path's counts include the calls of the warp's twin with a CUDA x,
    and the run fails unless each path's is 0;
 4. the given-SMPL slice at full width (256², conv_dim 64, 6 res blocks,
-   bf16): Imitator.personalize and three 64-frame inference_by_smpls
-   requests at batch 16, with the kernels' launch counts over that run
-   (the warp kernel 5 a batch); the float32
-   master weights the bf16 Imitator was given stay bit for
-   bit;
+   bf16): Imitator.personalize and one 64-frame inference_by_smpls
+   request at batch 16, with the kernels' launch counts over that run
+   (the warp kernel 5 a batch); the float32 master weights the bf16
+   Imitator was given stay bit for bit;
 4b. the image-driven leg at full width: HMR (ResNet-50 at 224², float32,
    TF32 off) + the same generator: personalize(src_img) with no given
-   SMPL, then three 64-frame inference(tgt_imgs224, batch=16) requests;
-   frames/s, HMR ms per batch of 16, launch counts;
+   SMPL, then one 64-frame inference(tgt_imgs224, batch=16) request;
+   launch counts;
 5. the given-SMPL slice in float32 with TF32 off, 2 frames, the card
    against the CPU with the same weights: the kernels on the CPU run's
    geometry give the CPU twins' fim (equal), weights and flow; the
@@ -73,22 +61,20 @@ Phases, each failing the run (exit 1) on any error:
    same encoder run in TF32 must fail, and max |dθ| <= 1e-4;
 7. appearance transfer at full width (bf16): Swapper.swap_setup
    (2 zbuffer_bucket_rows launches), swap("body") and swap("all"), which
-   must differ on the source's kept head, swap ms (CUDA events, median of
-   20), and the swapped image personalised and driven through three
-   64-frame imitate_by_smpls requests at batch 16 (4 zbuffer_bucket_flow
-   launches each);
+   must differ on the source's kept head, and the swapped image
+   personalised and driven through one 64-frame imitate_by_smpls request
+   at batch 16 (4 zbuffer_bucket_flow launches);
 8. novel view at full width: Viewer.personalize (1 rows launch),
    view_sweep of 16 yaws (1 flow launch; the body covers > 2% of the
-   pixels at yaw 0 and 90), three 64-view view_by_smpls requests with
-   random root orientations at batch 16 (4 flow launches each), views/s;
-8b. the DeepFill background (float32) with front_warp: personalize
-   seconds (first call) and one 64-frame request;
+   pixels at yaw 0 and 90), one 64-view view_by_smpls request with
+   random root orientations at batch 16 (4 flow launches);
+8b. the DeepFill background (float32) with front_warp: personalize and
+   one 64-frame request;
 10. test-time post-tune at full width (bf16 Imitator, float32 master,
    Sphere20a face net, seeded): adaptive_personalize on 8 default priors
    at batch 4 for 5 epochs (10 Adam steps, face loss on), twice, and
-   post_tune_swapper for 50 iterations on phase 7's pair, twice: seconds
-   per subject of each call, ms per tune step (CUDA events, median of
-   10), the cycle-loss history, the rows and flow launches each adds;
+   post_tune_swapper for 50 iterations on phase 7's pair, twice: the
+   cycle-loss history, the rows and flow launches each adds;
    the losses are finite and inference after the tune differs from
    inference before it. Then one float32 tune step with TF32 off on the
    card and on the CPU from the same weights and pair batch (128², conv_dim
@@ -103,16 +89,13 @@ Phases, each failing the run (exit 1) on any error:
    batch 16, conv_dim 64, 6 res blocks, a 4-layer instance-norm PatchGAN,
    VGG19 and Sphere20a losses on with seeded weights, the paper's loss
    weights, θs as the JAX bench's train point), in bf16 and again in
-   float32 (cuDNN's default TF32): one warm-up step, then 5 timed G+D
-   steps, 1 G-only step, one eval-only step and one visuals call, with
-   the launch counts over those 8 (1 zbuffer_bucket_rows and 1
-   zbuffer_bucket_flow each); ms per step (CUDA events, median of 5),
-   samples/s, peak memory (max_memory_allocated above what the earlier
-   phases still hold), finite losses, G's and
-   D's weights moved, the float32 master and Adam's moments still
-   float32 under bf16; a profile of one bf16 step (the largest kernels,
-   the device's idle share, the z-buffers' share; full table in
-   chiprun_out/profile_train_step.txt). On the step's own bodies, the
+   float32 (cuDNN's default TF32): one warm-up step, then 5 G+D steps,
+   1 G-only step, one eval-only step and one visuals call, with the
+   launch counts over those 8 (1 zbuffer_bucket_rows and 1
+   zbuffer_bucket_flow each); peak memory (max_memory_allocated above
+   what the earlier phases still hold), finite losses, G's and D's
+   weights moved, the float32 master and Adam's moments still float32
+   under bf16. On the step's own bodies, the
    raster with the kernels against the same calls on their plain twins
    (fim equal, weights <= 2e-4, T <= 1e-5). One float32 train step with
    TF32 off on the card and on the CPU from the same weights and the
@@ -137,57 +120,50 @@ Phases, each failing the run (exit 1) on any error:
    within one level of rgb_to_i420 of the float preds, rgb_to_i420 and
    i420_to_rgb_device on the card against the CPU (equal; 1e-6), and the
    I420 ingest through _stream_infer against inference (STREAM_TOL), one
-   zbuffer_bucket_flow launch per batch; on the bf16 leg of 4b: frames/s
-   of the u8 and I420 streams (median of 3) against inference on the same
-   frames pre-staged on the card, the split (the ring's decode + resize
-   ms a frame, u8 H2D, HMR + imitation, D2H u8 / I420 ms a batch) and the
-   device's idle share of one streamed request under torch.profiler
-   (chiprun_out/profile_host_io.txt); serve's make_server in-process on
+   zbuffer_bucket_flow launch per batch; on the bf16 leg of 4b the u8
+   and the I420 stream, one request each (one flow launch per batch);
+   serve's make_server in-process on
    127.0.0.1: /healthz (backend cuda), /personalize (a JPEG body),
    /imitate (64 θs -> 64 JPEGs of 256²), /imitate_frames (16 JPEGs), a
    malformed body 400 then 200, /imitate_video 400 without ffmpeg,
-   latencies (median of 3), memory over 10 requests within
-   SERVE_MEM_SLACK, HMR on the service's worker thread against a fresh
-   thread (what the worker saves: PyTorch's per-thread cuDNN plans); then cli.run_imitator on the 64 frames (timed, first
-   call), and together run_imitator --i420, run_swap, run_view (16 views)
-   and demos imitator, each a subprocess with --device cuda, exit 0, the
-   files written and decodable;
+   memory over 10 requests within SERVE_MEM_SLACK; then cli.run_imitator
+   on the 64 frames, and together run_imitator --i420, run_swap,
+   run_view (16 views) and demos imitator, each a subprocess with
+   --device cuda, exit 0, the files written and decodable;
 13. the remaining trainers at full width (256², batch 16, conv_dim 64, 6
    res blocks, 4-layer PatchGANs, VGG19 and Sphere20a on, seeded
    weights): the augmented trainer (tasks/trainer_aug.py: the Places2
    stream, a U(-1, 1) stand-in here, and the Global + Local D) in bf16
-   and in float32, a warm-up step, 5 timed G+D steps and 1 G-only step
-   (1 zbuffer_bucket_rows and 1 zbuffer_bucket_flow launch each), ms per
-   step (CUDA events, median of 5), samples/s, peak memory, finite
-   losses, both nets moved, the float32 master and Adam's moments
-   float32, a profile of one bf16 step
-   (chiprun_out/profile_train_aug_step.txt); a small iPER + Places2 +
+   and in float32, a warm-up step, 5 G+D steps and 1 G-only step (1
+   zbuffer_bucket_rows and 1 zbuffer_bucket_flow launch each), peak
+   memory, finite losses, both nets moved, the float32 master and Adam's
+   moments float32; a small iPER + Places2 +
    DeepFashion tree (60 JPEGs from the card's encoder) read by
    dataset_by_name("iPER_fashion_place") through the loader on the card
    (4 threads, nvJPEG) into one float32 aug step;
    one float32 aug step card vs CPU with TF32 off at 128² under phase
    11's bounds (both PatchGANs' biases before an instance norm left out
    per tensor); the three ablation baselines (tasks/trainer_baseline.py)
-   in float32, a warm-up step and 3 timed steps each (2
+   in float32, a warm-up step and 3 steps each (2
    zbuffer_bucket_rows launches a step, no flow), texture_warping's
    extract_texture + render_textured card vs CPU on the CPU's raster
    within TEX_TOL; soft_silhouette on the 12,880-face body card vs CPU
    at 128² (SIL_TOL) with its camera gradient (SIL_GRAD_RTOL), and its
-   forward + backward time and peak memory at 256², batch 2; then
+   forward + backward peak memory at 256², batch 2; then
    cli.train.main --model impersonator_trainer_aug and --model
    feature_warping for one epoch of 4 steps each (launches 4 / 4 and
    8 / 0);
 14. the evaluation suite (metrics/, cli/evaluate.py), the metric nets in
    float32 with TF32 off: LPIPS (alex, the repository's v0.1 lin heads,
-   a seeded backbone) on 64 pairs at 256², batch 16, pairs/s, card vs
-   CPU within EVAL_NET_RTOL; InceptionV3 (He-initialised, seeded) pool3
-   and probabilities of 64 images resized to 299², images/s, pool3 card
+   a seeded backbone) on 64 pairs at 256², batch 16, card vs CPU within
+   EVAL_NET_RTOL; InceptionV3 (He-initialised, seeded) pool3 and
+   probabilities of 64 images resized to 299², pool3 card
    vs CPU within EVAL_NET_RTOL and the FID of 32 against 32 images from
    each device's features within EVAL_FID_RTOL; InceptionResnetV1,
-   SENet50, Sphere20a, OSNet and PCB embeddings of the 64 images,
-   images/s, card vs CPU within EVAL_NET_RTOL; MTCNN with the
-   repository's weights on 16 frames of 256² with a drawn face
-   (scenes.face_image), frames/s, the same boxes on both devices within
+   SENet50, Sphere20a, OSNet and PCB embeddings of the 64 images, card
+   vs CPU within EVAL_NET_RTOL; MTCNN with the repository's weights on
+   16 frames of 256² with a drawn face (scenes.face_image), the same
+   boxes on both devices within
    EVAL_BOX_PX; cli.evaluate.main on an iPER tree of 2 videos × 16 JPEG
    frames of 256² from the card's encoder with θ pickles (self- and
    cross-imitation, bf16) with every extractor: LPIPS on the
@@ -195,8 +171,8 @@ Phases, each failing the run (exit 1) on any error:
    InceptionResnetV1, SENet50, Sphere20a, OSNet and PCB above written
    here as the JAX package's msgpack files by utils.convert.TO_JAX and
    utils.checkpoint.write_flax_msgpack (each read back bit-equal), a
-   seeded darknet graph (YOLO_CFG) and --sspe: wall seconds, frames/s,
-   launches exactly rows 2 / flow 8, every self- and cross-imitation
+   seeded darknet graph (YOLO_CFG) and --sspe: launches exactly rows 2
+   / flow 8, every self- and cross-imitation
    key finite, results.txt and results.json; then the same command in
    float32 (TF32 off) on one video at --max_frames 4, on the card (rows
    1 / flow 2) and on the CPU (reading the frames through the card's
@@ -209,7 +185,7 @@ Phases, each failing the run (exit 1) on any error:
    (parallel.init_distributed): losses bit-equal, all_reduce_mean_ over
    one process the identity on the step's gradients, the gradients and
    parameters within MC_NONDET_FACTOR of two plain steps' own gap (bit-
-   equal where theirs is 0); ms of each step (rows 3 / flow 3); (b) two
+   equal where theirs is 0) (rows 3 / flow 3); (b) two
    processes on the card (torch.multiprocessing.spawn), each on 8 of the
    16 samples, each first stepping alone, then in a gloo group (a probe
    all-reduce of a CUDA tensor first): all_reduce_mean_ of the steps'
@@ -218,25 +194,20 @@ Phases, each failing the run (exit 1) on any error:
    the mean of their steps alone (losses MC_SAME_RTOL, gradients
    MC_SAME_GRAD_RTOL) and against one process on all 16 (MC_LOSS_RTOL;
    each net's MC_GRAD_RTOL per tensor and over all), both ranks'
-   parameters bit-equal after Adam, ms of each rank's two steps; (c) an
+   parameters bit-equal after Adam; (c) an
    Imitator whose mesh names the card twice (bf16, phase 4's width):
-   personalize (rows 1: one personalisation, copied), three 64-frame
-   inference_by_smpls requests at batch 16 (flow 8 each: 4 batches x 2
-   pieces) and one 64-frame inference (flow 8), frames/s against phase
-   4; then in float32 the two-replica mesh at batch 16 against one
+   personalize (rows 1: one personalisation, copied), one 64-frame
+   inference_by_smpls request at batch 16 (flow 8: 4 batches x 2
+   pieces) and one 64-frame inference (flow 8); then in float32 the two-replica mesh at batch 16 against one
    device at batch 8 (a piece's batch) on the same requests (PRED_TOL)
    with frame 0's camera reference; (d)
    run_imitator.main --data_parallel on 8 JPEG frames (rows 1 / flow 1)
    and serve's ImitatorService(data_parallel=True) answering 64 θs (flow
-   4), each on a mesh of the visible cards. Two ranks or two replicas on
-   one card measure overhead, not scaling. Before and after the phase
-   (and before 5 and 5b), the process's state (process_state); the
-   seconds of (a)-(d). Phase 15 leaves glibc's heap ~3.9 GiB larger,
-   mostly free (the gradients and parameters it brings to the host), so
-   9 and 5 then take their CPU memory from that heap: 0.5 and 0.2 s of
-   system time on the H100's host against 89.5 and 81.8 s without phase
-   15 (9: 19.5 against 45.4 s; 5: 11.8 against 30.4), with the same
-   threads, flags and results;
+   4), each on a mesh of the visible cards. Before and after the phase
+   (and before 5 and 5b), the process's state (process_state). Phase 15
+   leaves glibc's heap ~3.9 GiB larger, mostly free (the gradients and
+   parameters it brings to the host), so 9 and 5 then take their CPU
+   memory from that heap;
 16. the repository's tools on the port (impersonator_tpu_torch/tools), each
    a subprocess on the card (TOOL_LAUNCHER: the module run as by python
    -m, its process's launch counts printed last), all started together,
@@ -265,14 +236,10 @@ Phases, each failing the run (exit 1) on any error:
    swap_core on the card from the CPU's two states (preds within 1e-2),
    the flow kernel on the CPU's rotated meshes (fim equal to the twin's,
    flow within 1e-5) and the view tail from the CPU's raster (within
-   1e-2), DeepFill's output (within 1e-3);
-6. one full-leg request, one view_by_smpls request and one swap under
-   torch.profiler: summed kernel time, the device's idle share of the
-   wall time, the largest kernels and the z-buffer kernels' mean device
-   time per launch (full tables in chiprun_out/profile_*.txt).
+   1e-2), DeepFill's output (within 1e-3).
 
 Phases run in the order 1-4b, 7, 8, 8b, 10, 11, 12, 13, 14, 15, 16, 9, 5,
-5b, 6. Each path (3c, 4, 4b, 7, 8, 8b, 10, 11's bf16, float32 and CLI
+5b. Each path (3c, 4, 4b, 7, 8, 8b, 10, 11's bf16, float32 and CLI
 runs, 12's streamed requests and /imitate, 13's trainers and CLI runs,
 14's cli.evaluate runs, 15's steps, mesh requests and data-parallel
 CLIs, 16's tool subprocesses) runs
@@ -288,20 +255,13 @@ launches_by_path holds each path's counts ("train", "train_fp32",
 "train_two_ranks" (both ranks' counts, read in each rank's process),
 "mesh_personalize", "mesh_inference_by_smpls", "mesh_inference",
 "run_imitator_dp" and "serve_imitate_dp" for phase 15; "tool_<name>"
-for each tool of phase 16 and "tool_run_imitator_post_tune"). The seconds of
-each phase
-and the whole script's wall time are printed before the record. The line before the
-last is nvidia-smi's name and power limit, the one before it the kernels' JSON record (with each kernel's
-bound: the larger of its bytes over 3.35 TB/s and its float operations
-over 67 TFLOP/s, the H100 SXM's published peaks, both counted on this
-run's inputs: 15 operations per (pixel, live candidate) pair whose
-pixel lies in the face's integer pixel bbox, as ops.rasterizer's cull
-computes it, and 23 more per pair inside its face; every input read
-once, except the slots' face ids, read only where a slot is live, and
-zbuffer_tiles' face table, of which only the rows a live slot names are
-read; bound_ms_all_pairs charges the 15 to every live pair instead, the
-count of the earlier records); the last line is the JSON status. Weights
-are random (seeded); no checkpoint is read.
+for each tool of phase 16 and "tool_run_imitator_post_tune"). The line
+before the last is nvidia-smi's name and power limit, the one before it
+the kernels' JSON record (each kernel's launches, launches by path and
+largest error against its twin); the last line is the JSON status.
+Weights are random (seeded); no checkpoint is read. Timing questions go
+to ``python3 lwg_bench/run.py --workload W --seed N --seconds 51 --trace
+1`` and ``lwg_bench/span_split.py``.
 """
 
 import contextlib
@@ -310,7 +270,6 @@ import dataclasses
 import json
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 GEOM = dict(s=256, tile=16, span=2)
@@ -327,7 +286,6 @@ SWAP_DIFFER = 0.9
 # ~1e-3, so FEAT_RTOL passes full float32 and fails TF32. θ itself moves
 # little: the IEF adds the features through fc3 weights scaled by 5e-5
 FEAT_RTOL, THETA_TOL = 1e-5, 1e-4
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: fp32 non-tensor, HBM3
 # one float32 tune step (phase 10) or train step (phase 11), card vs CPU
 # with TF32 off: losses (float32 sums in another order); the gradient in
 # the L2 norm per tensor and over all
@@ -336,11 +294,6 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: fp32 non-tensor, HBM3
 # share of weights whose first Adam step (±lr) differs
 TUNE_LOSS_RTOL, TUNE_GRAD_RTOL, TUNE_GRAD_ALL_RTOL, TUNE_STEP_FLIPS = (
     1e-4, 5e-2, 2e-2, 1e-2)
-# float operations of the z-buffer contract: the inside test (three edge
-# functions) for every (pixel, candidate) pair that can pass it, the
-# pixel in the face's bbox; barycentric rows 12, renormalisation 5 and
-# depth 6 only for the pairs that pass it
-OPS_TEST, OPS_HIT = 15, 23
 # phase 12. The card's JPEG decoder is nvJPEG: its IDCT rounds otherwise
 # than libjpeg's integer one (the chroma upsampling and colour conversion
 # after it are libjpeg's, bit for bit), so a decode may sit a level or two
@@ -427,18 +380,6 @@ MC_SAME_RTOL, MC_SAME_GRAD_RTOL = 2e-7, 1e-3
 MC_CARD_SHARE = 0.35
 
 
-def lap(name):
-    """Close the running phase's wall-clock lap and start ``name``'s
-    (None closes the last one); LAPS holds the seconds of each."""
-    now = time.perf_counter()
-    if _LAP[1] is not None:
-        LAPS[_LAP[1]] = round(now - _LAP[0], 1)
-    _LAP[:] = [now, name]
-
-
-LAPS, _LAP = {}, [0.0, None]
-
-
 def check(cond, msg):
     if not cond:
         raise SystemExit(f"chip_smoke: FAIL: {msg}")
@@ -450,179 +391,6 @@ def gpu_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
-
-
-def median_ms(fn, reps):
-    """Median time of one fn() over reps calls, CUDA events around each
-    call: the card's time from the call's start, so it also counts the
-    host's launch."""
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return sorted(times)[len(times) // 2]
-
-
-def device_ms(fn, calls=20, kernel="zbuffer"):
-    """Median device time of one launch of the kernel named ``kernel``
-    that fn launches, over `calls` calls under torch.profiler: the
-    kernel's own time, whatever the host does. None when the profiler
-    sees no such kernel."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    times = sorted(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and kernel in e.name)
-    return times[len(times) // 2] / 1e3 if times else None
-
-
-def held_stream_ms(fn, calls=20):
-    """Mean device time of one fn() from CUDA events: a sleep kernel holds
-    the stream while the host queues the start event, `calls` calls of fn
-    and the end event, so no host time falls between the two events. None
-    when the stream ran dry before the host had queued them all, four
-    times over with a longer sleep each time."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    cycles = 20_000_000          # ~10 ms at the H100's 1.98 GHz boost
-    for _ in range(4):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        a.record()
-        for _ in range(calls):
-            fn()
-        b.record()
-        held = not a.query()
-        b.synchronize()
-        if held:
-            return a.elapsed_time(b) / calls
-        cycles *= 4
-    return None
-
-
-def kernel_ms(fn):
-    """(ms, device_ms, how, held_ms) of a kernel wrapper: the median of a
-    lone call (median_ms), as the earlier records timed the kernels; the
-    device time of one launch, the median under torch.profiler
-    (device_ms, asked twice) or, where the profiler sees no z-buffer
-    kernel, held_ms; `how` names which; and held_ms, the mean device time
-    of one call from CUDA events on a held stream (held_stream_ms),
-    measured every time so that the two methods are compared in every
-    run."""
-    held = held_stream_ms(fn)
-    check(held is not None, "the held stream ran dry")
-    dev_ms, how = device_ms(fn), "profiler"
-    if dev_ms is None:
-        dev_ms = device_ms(fn)
-    if dev_ms is None:
-        dev_ms, how = held, "cuda_events_held_stream"
-        print("kernel_ms: the profiler saw no z-buffer kernel twice; device "
-              "time from CUDA events on a held stream", flush=True)
-    return median_ms(fn, 50), dev_ms, how, held
-
-
-def bound(ops, nbytes):
-    """Least time the card could take: (ms, what bounds it)."""
-    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                       else "bytes")
-
-
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def zbuffer_ops(cr, rast, gather, m, b, s, tile):
-    """Float operations these inputs need: OPS_TEST per (pixel, live
-    candidate) pair with the pixel in the face's integer pixel bbox (as
-    the rasterizer's cull computes it) plus OPS_HIT per pair inside its
-    face; the earlier count, OPS_TEST for every live pair; and the live
-    (tile, candidate) pairs: all, those with a pixel of the tile in the
-    face's bbox, and those passing the inside test at a pixel of the
-    tile. gather(c0, c1) gives candidates c0..c1 of every tile: (face
-    verts (B, T, C, 9), live (B, T, C) bool)."""
-    n_tiles, npx = (s // tile) ** 2, tile * tile
-    xi, yi, xp, yp = cr._tile_pixels(s, tile, gather(0, 1)[0].device)
-    chunk = max(1, cr._PLAIN_BLOCK // (b * n_tiles * npx))
-    pairs = in_bbox = hits = 0
-    cands = [0, 0, 0]
-    for c0 in range(0, m, chunk):
-        d, live = gather(c0, c0 + chunk)
-        inside = cr._pair_weights(d, xi, yi, xp, yp, float(s))[0]
-        live = live[:, :, None, :]
-        x0, x1, y0, y1 = (v[:, :, None] for v in rast._pixel_bbox(
-            d[..., 0::3], d[..., 1::3], s))
-        box = (xi >= x0) & (xi <= x1) & (yi >= y0) & (yi <= y1)
-        pairs += int(live.sum()) * npx
-        in_bbox += int((box & live).sum())
-        hits += int((inside & live).sum())
-        for i, any_px in enumerate((live, box & live, inside & live)):
-            cands[i] += int(any_px.any(2).sum())
-    return (OPS_TEST * in_bbox + OPS_HIT * hits,
-            OPS_TEST * pairs + OPS_HIT * hits, tuple(cands))
-
-
-def bucket_ops(cr, rast, verts, starts, s, tile, span):
-    pos = cr._tile_candidates(starts, s // tile, span)
-    bidx = batch_index(verts)
-
-    def gather(c0, c1):
-        p = pos[..., c0:c1]
-        return verts[bidx, p.clamp(min=0)], p >= 0
-    return zbuffer_ops(cr, rast, gather, pos.shape[-1], verts.shape[0], s,
-                       tile)[:2]
-
-
-def tiles_work(cr, rast, packed, cand, valid, s, tile):
-    """((float operations, all-pairs operations), bytes, bytes with the
-    whole face table charged, the live (tile, slot) pairs: all, with a
-    pixel of the tile in the face's bbox, with a hit) of the fixed-slot
-    z-buffer on these slots. Bytes: valid read once, cand only where a
-    slot is live, the 36 bytes of each face row that a live slot names
-    read once (the earlier records charged the whole face table), fim and
-    the weights written once."""
-    import torch
-    b, nf = packed.shape[0], packed.shape[1]
-    live = (valid != 0) & (cand >= 0) & (cand < nf)
-    used = slots_used(live)
-    bidx = batch_index(packed)
-
-    def gather(c0, c1):
-        ids = cand[..., c0:c1].clamp(0, nf - 1).long()
-        return packed[bidx, ids], live[..., c0:c1]
-    *ops, cands = zbuffer_ops(cr, rast, gather, used, b, s, tile)
-    named = torch.zeros((b, nf), dtype=torch.bool, device=packed.device)
-    named[bidx.expand_as(cand)[live], cand[live].long()] = True
-    rest = nbytes(valid) + 4 * int(live.sum()) + 16 * b * s * s
-    return (ops, 36 * int(named.sum()) + rest, nbytes(packed) + rest,
-            cands)
-
-
-def batch_index(t):
-    import torch
-    return torch.arange(t.shape[0], device=t.device)[:, None, None]
-
-
-def slots_used(live):
-    """1 + the last slot that is live in any tile (0 when none is)."""
-    import torch
-    used = torch.nonzero(live.reshape(-1, live.shape[-1]).any(0))
-    return int(used.max()) + 1 if used.numel() else 0
 
 
 # calls of the warp's plain twin with a CUDA x, counted by the wrapper
@@ -784,92 +552,6 @@ def slots_vs_plain(cr, rast, slots, tile):
     return (fim_k, wim_k), w_err, cov, (packed, cand, valid, geo)
 
 
-def bounds_of(ops, nbytes_):
-    """(bound ms, what bounds it, all-pairs bound ms) of (ops, all-pairs
-    ops) and bytes."""
-    return bound(ops[0], nbytes_) + (bound(ops[1], nbytes_)[0],)
-
-
-def time_tiles(cr, rast, packed, cand, valid, geo):
-    """(ms, device_ms, how, held_ms) of zbuffer_tiles (kernel_ms), the
-    median ms of its twin on these slots, the kernel's bounds (ms, what bounds it,
-    all-pairs ms, ms with the whole face table charged) and the live
-    (tile, slot) pairs (tiles_work)."""
-    ms = kernel_ms(lambda: cr.zbuffer_tiles(packed, cand, valid, *geo))
-    plain_ms = median_ms(lambda: cr.zbuffer_tiles_plain(packed, cand, valid,
-                                                        *geo), 5)
-    ops, nbytes_, nbytes_table, cands = tiles_work(
-        cr, rast, packed, cand, valid, geo[0], geo[1])
-    return ms, plain_ms, (bounds_of(ops, nbytes_)
-                          + (bound(ops[0], nbytes_table)[0],)), cands
-
-
-def route_split(fn, calls=10):
-    """Mean device time of one fn() under torch.profiler, split into the
-    z-buffer kernels and everything else (ms, ms); None when the profiler
-    sees no device activity."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kern = rest = 0.0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            if "zbuffer" in e.name:
-                kern += us
-            else:
-                rest += us
-    if kern + rest == 0.0:
-        return None
-    return rest / calls / 1e3, kern / calls / 1e3
-
-
-def profile_request(fn, out_path):
-    """One call of fn under torch.profiler (CPU + CUDA activity): returns
-    (wall ms, summed kernel ms, [(kernel ms, launches, name)] largest
-    first); writes the full key_averages table to out_path. Summed
-    kernel time is None when the profiler saw no device activity."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(reverse=True)
-    out_path.parent.mkdir(exist_ok=True)
-    out_path.write_text(prof.key_averages().table(
-        sort_by="self_device_time_total", row_limit=60))
-    return wall, (sum(r[0] for r in rows) if rows else None), rows
-
-
-def not_measured(x, spec):
-    """x formatted by spec, or 'not measured' for None (the profiler saw
-    no device activity)."""
-    return "not measured" if x is None else format(x, spec)
-
-
-def kernel_share(kern, wall):
-    """The summed kernel time of a profiled call and the device's idle
-    share of its wall time; 'not measured' where the profiler saw no
-    device activity."""
-    if kern is None:
-        return "summed kernel time not measured (the profiler saw no device "\
-               "activity)"
-    return (f"summed kernel time {kern:.2f} ms, device idle "
-            f"{1 - kern / wall:.3f} of the wall")
-
-
 def target_images(n, seed):
     """n stand-ins for 224² target crops in [-1, 1]: the smooth source
     pattern at random phases plus a little noise, so HMR's θ differs
@@ -897,19 +579,6 @@ def to_device(state, dev):
     return {k: move(v) for k, v in state.items()}
 
 
-def requests(fn, n=3):
-    """(host seconds of each of n calls of fn, each ending in a
-    synchronise; the last call's output)."""
-    import torch
-    times = []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    return times, out
-
-
 def view_coverage(viewer, vwr, euler_to_matrix, yaws):
     """Share of the pixels the source body covers at each yaw (the fim of
     the viewer's rotated mesh under the source camera)."""
@@ -924,24 +593,19 @@ def view_coverage(viewer, vwr, euler_to_matrix, yaws):
     return (fim >= 0).float().mean((1, 2)).tolist()
 
 
-def warp_kernel_phase(dev, flow, tag):
+def warp_kernel_phase(dev, flow):
     """Phase 3d: the warp kernel against its plain twin, bit for bit, at
     the five warps of an imitation batch, on random flows in [-1.1, 1.1]
     with background rows and on ``flow`` (the bodies' flow T, (B, S, S,
     2)) resized to each stage as the generator resizes it; batch-1 and
-    batch-B sources, bf16 and fp16. Each warp's times and byte bound on
-    the bodies' flow with a bf16 batch-1 source, as the imitation path
-    sends it, and the ms of a forward and backward of x's gradient, the
-    kernel's Function against the twin under autograd. -> (one dict a
-    warp, their sums, the largest |kernel - twin| compared, NaNs where
-    the twin's are)."""
+    batch-B sources, bf16 and fp16. -> the largest |kernel - twin|
+    compared, NaNs where the twin's are."""
     import torch
-    import torch.nn.functional as F
     from impersonator_tpu_torch.ops import cuda_warp as cw
     from impersonator_tpu_torch.ops.sampler import resize_flow
     batch, s = flow.shape[0], flow.shape[1]
     g = torch.Generator(device=dev).manual_seed(0)
-    rows, err = [], 0.0
+    err = 0.0
     for c, size in ((3, s), (128, s // 2), (256, s // 4), (512, s // 8),
                     (3072, s // 8)):
         x = torch.randn((1, c, size, size), generator=g,
@@ -963,40 +627,11 @@ def warp_kernel_phase(dev, flow, tag):
                     check(torch.equal(got.isnan(), nan), "NaNs differ")
                     err = max(err, float((got.float() - want.float())[~nan]
                                          .abs().max()))
-
-        def kern():
-            return cw.warp_bilinear(x, grid)
-
-        def grad_ms(fn):
-            xg = x.detach().requires_grad_(True)
-            go = torch.ones((batch, c, size, size), dtype=x.dtype,
-                            device=dev)
-            return median_ms(lambda: torch.autograd.grad(fn(xg, grid), xg,
-                                                         go), 10)
-
-        out_bytes = batch * c * size * size * x.element_size()
-        rows.append({
-            "channels": c, "size": size,
-            "device_ms": device_ms(kern, kernel="warp_bilinear"),
-            "ms": median_ms(kern, 50),
-            "plain_ms": median_ms(lambda: cw.warp_bilinear_plain(x, grid),
-                                  20),
-            "library_ms": median_ms(lambda: F.grid_sample(
-                x.float().expand(batch, -1, -1, -1), grid, mode="bilinear",
-                padding_mode="zeros", align_corners=True).to(x.dtype), 20),
-            "grad_ms": grad_ms(cw.warp_bilinear),
-            "plain_grad_ms": grad_ms(cw.warp_bilinear_plain),
-            "bound_ms": bound(0, nbytes(x, grid) + out_bytes)[0]})
-    total = {k: sum(r[k] for r in rows) if all(r[k] is not None
-                                               for r in rows) else None
-             for k in ("device_ms", "ms", "plain_ms", "library_ms",
-                       "grad_ms", "plain_grad_ms", "bound_ms")}
     print(f"warp kernel vs plain twin, the 5 warps of an imitation batch "
           f"(batch {batch}, {s}^2), random and body flows, bf16 and fp16, "
           f"batch-1 and batch-{batch} sources: equal bit for bit (largest "
-          f"|difference| {err}); on the body flows per warp {rows}; summed "
-          f"{total} {tag}", flush=True)
-    return rows, total, err
+          f"|difference| {err})", flush=True)
+    return err
 
 
 def tensor_gaps(a, b):
@@ -1013,10 +648,8 @@ def tune_step_card_vs_cpu(imi, pt, face_cpu, assets, theta, dev):
     the same master weights and the CPU's pair batch (128², conv_dim 64, 6
     res blocks, batch 2, face loss on, the pairs' structure anchors
     swapped): (loss gaps, gradient gaps, share of weights whose step
-    differs, CPU seconds)."""
-    import torch
+    differs)."""
     from impersonator_tpu_torch.config import TestConfig
-    t0 = time.perf_counter()
     cfg = TestConfig(image_size=128, repeat_num=6, compute_dtype="float32")
     im_c = imi.Imitator(cfg, assets=assets, device="cpu")
     im_c.personalize(source_image(128), src_smpl=theta)
@@ -1041,16 +674,15 @@ def tune_step_card_vs_cpu(imi, pt, face_cpu, assets, theta, dev):
                      if p.grad is not None},
                     {k: p.detach().cpu() for k, p in
                      gen.named_parameters()}))
-    cpu_s = time.perf_counter() - t0
     (m_c, g_c, w_c), (m_g, g_g, w_g) = out
     loss_gap = max(abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in m_c)
     moved = sum(int((w_c[k] != w0[k]).sum()) for k in g_c)
     flips = sum(int(((w_g[k] - w_c[k]).abs() > 1e-4).sum()) for k in g_c)
-    return m_c, loss_gap, tensor_gaps(g_g, g_c), flips / moved, cpu_s
+    return m_c, loss_gap, tensor_gaps(g_g, g_c), flips / moved
 
 
 def post_tune_phase(cr, imi, swapper, assets, cfg, src_img, thetas,
-                    req_thetas, dev, tag):
+                    req_thetas, dev):
     """Phase 10 (module docstring); returns the launch counts of the two
     post-tune paths."""
     import numpy as np
@@ -1065,12 +697,8 @@ def post_tune_phase(cr, imi, swapper, assets, cfg, src_img, thetas,
     priors = pt.default_prior_poses(imit.src_info["theta"], n=8)
     face_g = copy.deepcopy(face).to(dev)
     reset_counts(cr)
-    secs, hist = [], []
-    for _ in range(2):
-        t, m = requests(lambda: pt.adaptive_personalize(
-            imit, priors, epochs=5, batch_size=4, face=face_g), 1)
-        secs.append(t[0])
-        hist.append(m)
+    hist = [pt.adaptive_personalize(imit, priors, epochs=5, batch_size=4,
+                                    face=face_g) for _ in range(2)]
     launches = read_counts(cr)
     check(all(m["n_steps"] == 10 for m in hist), f"steps {hist}")
     check(all(np.isfinite([m[k] for k in ("cyc", "str", "fid", "msk",
@@ -1085,19 +713,11 @@ def post_tune_phase(cr, imi, swapper, assets, cfg, src_img, thetas,
     diff = float((after - before).abs().max())
     check(bool(torch.isfinite(after).all()) and diff > 1e-4,
           f"inference after post-tune moved by {diff}")
-    # ms per tune step: a minibatch of 4 pairs, CUDA events
-    batch = pt.build_meta_pairs(imit, priors[:4])
-    bg = imit.src_info["bg"].expand(4, -1, -1, -1)
-    step = pt.make_tune_step(imit, pt.tune_optimizer(imit.nets.generator,
-                                                     2e-4), face_g)
-    step_ms = median_ms(lambda: step(batch, bg), 10)
     print(f"post-tune (imitator): adaptive_personalize, 8 priors, batch 4, 5 "
-          f"epochs ({hist[0]['n_steps']} Adam steps, face loss on), "
-          f"{secs[0]:.3f} s per subject on the first call, {secs[1]:.3f} s "
-          f"on the second; {step_ms:.3f} ms per tune step at batch 4 "
-          f"(median of 10, CUDA events); launches over both calls "
-          f"{launches}; {cfg.image_size}^2, conv_dim 64, {cfg.repeat_num} "
-          f"res blocks, float32 master, bf16 inference {tag}", flush=True)
+          f"epochs ({hist[0]['n_steps']} Adam steps, face loss on), twice; "
+          f"launches over both calls {launches}; {cfg.image_size}^2, "
+          f"conv_dim 64, {cfg.repeat_num} res blocks, float32 master, bf16 "
+          f"inference", flush=True)
     for i, m in enumerate(hist):
         print(f"post-tune (imitator) call {i + 1}: cyc_history "
               f"{[round(x, 5) for x in m['cyc_history']]}, last step "
@@ -1107,11 +727,7 @@ def post_tune_phase(cr, imi, swapper, assets, cfg, src_img, thetas,
 
     swap_before = swapper.swap(target_part="body")
     reset_counts(cr)
-    sw_secs, sw_m = [], []
-    for _ in range(2):
-        t, m = requests(lambda: pt.post_tune_swapper(swapper, iters=50), 1)
-        sw_secs.append(t[0])
-        sw_m.append(m)
+    sw_m = [pt.post_tune_swapper(swapper, iters=50) for _ in range(2)]
     sw_launches = read_counts(cr)
     check(all(np.isfinite(list(m.values())).all() for m in sw_m),
           f"non-finite swapper tune losses {sw_m}")
@@ -1123,20 +739,18 @@ def post_tune_phase(cr, imi, swapper, assets, cfg, src_img, thetas,
     check(bool(torch.isfinite(swap_after).all()) and sw_diff > 1e-4,
           f"swap after the tune moved by {sw_diff}")
     print(f"post-tune (swapper): post_tune_swapper, 50 iterations on the "
-          f"2-pair batch, {sw_secs[0]:.3f} s per subject on the first call, "
-          f"{sw_secs[1]:.3f} s on the second, last step "
+          f"2-pair batch, twice, last step "
           f"{ {k: round(v, 5) for k, v in sw_m[1].items()} }; launches over "
           f"both calls {sw_launches}; swap('body') after the tune differs by "
-          f"up to {sw_diff:.4f} {tag}", flush=True)
+          f"up to {sw_diff:.4f}", flush=True)
 
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
-    m_c, loss_gap, (g_per, g_all), flips, cpu_s = tune_step_card_vs_cpu(
+    m_c, loss_gap, (g_per, g_all), flips = tune_step_card_vs_cpu(
         imi, pt, face, assets, thetas[0], dev)
     torch.backends.cudnn.allow_tf32 = cudnn_tf32
     print(f"post-tune step card vs CPU, float32, TF32 off (128^2, conv_dim "
-          f"64, 6 res blocks, batch 2, face loss on; CPU side {cpu_s:.1f} "
-          f"s): losses {m_c}, max relative gap {loss_gap:.3e} (bound "
+          f"64, 6 res blocks, batch 2, face loss on): losses {m_c}, max relative gap {loss_gap:.3e} (bound "
           f"{TUNE_LOSS_RTOL}); gradient L2 gap per tensor {g_per:.3e} "
           f"(bound {TUNE_GRAD_RTOL}), over all {g_all:.3e} (bound "
           f"{TUNE_GRAD_ALL_RTOL}); weights whose Adam step differs "
@@ -1236,11 +850,9 @@ def train_step_card_vs_cpu(tt, assets, dev):
     the same weights, fresh Adam states and the CPU's raster products
     (128², conv_dim 64, 6 res blocks, a 4-layer PatchGAN, batch 2, VGG
     and face losses on): (CPU losses, loss gap, G gaps, D gaps, share of
-    weights whose Adam step differs, CPU seconds)."""
-    import torch
+    weights whose Adam step differs)."""
     from impersonator_tpu_torch.config import TrainConfig
     from impersonator_tpu_torch.data.loader import stage_batch
-    t0 = time.perf_counter()
     cfg = TrainConfig(image_size=128, batch_size=2, repeat_num=6)
     tr_c = tt.build_trainer(cfg, assets, device="cpu")
     tr_g = tt.build_trainer(cfg, assets, device=dev)
@@ -1265,7 +877,6 @@ def train_step_card_vs_cpu(tt, assets, dev):
         out.append(({k: float(v) for k, v in m.items()},
                     {k: p.grad.cpu() for k, p in named(st)},
                     {k: p.detach().cpu() for k, p in named(st)}))
-    cpu_s = time.perf_counter() - t0
     (m_c, g_c, w_c), (m_g, g_g, w_g) = out
     loss_gap = max(abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in m_c
                    if m_c[k] != 0.0)
@@ -1278,10 +889,10 @@ def train_step_card_vs_cpu(tt, assets, dev):
             for n in "GD"}
     moved = sum(int((w_c[k] != w0[k]).sum()) for k in w0)
     flips = sum(int(((w_g[k] - w_c[k]).abs() > 1e-4).sum()) for k in w0)
-    return m_c, loss_gap, gaps, flips / moved, cpu_s
+    return m_c, loss_gap, gaps, flips / moved
 
 
-def cli_phase(cr, tag):
+def cli_phase(cr):
     """cli.train.main in-process on the card at 256², batch 16, the
     synthetic dataset (64 items: 4 steps an epoch): 1 epoch, then a
     second call that resumes from the latest checkpoint (--load_epoch -1)
@@ -1293,9 +904,7 @@ def cli_phase(cr, tag):
                 str(GEOM["s"]), "--batch_size", "16", "--nepochs_no_decay",
                 "1", "--checkpoints_dir", tmp, "--name", "smoke"]
         reset_counts(cr)
-        t0 = time.perf_counter()
         cli.main(base + ["--nepochs_decay", "0"])
-        t1 = time.perf_counter()
         exp = Path(tmp) / "smoke"
         want = {f"{k}_epoch_1_id_{l}.pth" for k in ("net", "opt")
                 for l in "GD"}
@@ -1303,7 +912,6 @@ def cli_phase(cr, tag):
               f"epoch 1 files {sorted(p.name for p in exp.iterdir())}")
         state = cli.main(base + ["--nepochs_decay", "1", "--load_epoch",
                                  "-1"])
-        t2 = time.perf_counter()
         launches = read_counts(cr)
         names = set(p.name for p in exp.iterdir())
         check({w.replace("_1_", "_2_") for w in want} <= names,
@@ -1314,15 +922,14 @@ def cli_phase(cr, tag):
     check(launches["zbuffer_bucket_rows"] == 8 and
           launches["zbuffer_bucket_flow"] == 8,
           f"cli.train launches {launches}")
-    print(f"cli.train: epoch 1 (4 steps, batch 16, {GEOM['s']}^2, float32) "
-          f"{t1 - t0:.2f} s with set-up, checkpoint files written; resumed "
-          f"with --load_epoch -1 at epoch 1, epoch 2 (4 steps) "
-          f"{t2 - t1:.2f} s, Adam steps {n_adam}, launches over both calls "
-          f"{launches} {tag}", flush=True)
+    print(f"cli.train: epoch 1 (4 steps, batch 16, {GEOM['s']}^2, float32), "
+          f"checkpoint files written; resumed with --load_epoch -1 at epoch "
+          f"1, epoch 2 (4 steps), Adam steps {n_adam}, launches over both "
+          f"calls {launches}", flush=True)
     return launches
 
 
-def train_phase(cr, smpl_ops, assets, dev, tag):
+def train_phase(cr, smpl_ops, assets, dev):
     """Phase 11 (module docstring); returns ({path: launch counts},
     max |dw|, max |dT| of the kernels against their twins on the step's
     bodies)."""
@@ -1331,7 +938,6 @@ def train_phase(cr, smpl_ops, assets, dev, tag):
     from impersonator_tpu_torch.config import TrainConfig
     from impersonator_tpu_torch.data.loader import stage_batch
     from impersonator_tpu_torch.tasks import trainer as tt
-    t_phase = time.perf_counter()
     s, bs = GEOM["s"], 16
     batch = stage_batch(train_batch(s, bs, 3), dev)
     by_path, twins = {}, None
@@ -1355,15 +961,9 @@ def train_phase(cr, smpl_ops, assets, dev, tag):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(cr)
-        times, metrics = [], []
+        metrics = []
         for fn in [step] * 5 + [step_g]:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
             st, m = fn(st, batch)
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
             metrics.append({k: float(v) for k, v in m.items()})
         m_eval = {k: float(v) for k, v in ev(st, batch).items()}
         visuals = vis_fn(st, batch)
@@ -1394,35 +994,19 @@ def train_phase(cr, smpl_ops, assets, dev, tag):
                      for (_, net), opt in zip(nets, (st.g_opt, st.d_opt))
                      for p in net.parameters())
         check(master, f"{dtype}: the master or Adam's moments left float32")
-        ms = sorted(times[:5])[2]
-        print(f"train ({dtype}): {ms:.3f} ms per G+D step (median of 5, "
-              f"CUDA events; {[round(t, 3) for t in times[:5]]}), "
-              f"{bs / ms * 1e3:.2f} samples/s, G-only step "
-              f"{times[5]:.3f} ms; peak memory {peak / 2**30:.2f} GiB (the "
+        print(f"train ({dtype}): peak memory {peak / 2**30:.2f} GiB (the "
               f"trainer's: nets, Adam, activations; above the "
               f"{base / 2**30:.2f} GiB the earlier phases hold); "
               f"launches over 5 G+D, 1 G-only, 1 eval, 1 visuals "
               f"{launches}; batch 16, {s}^2, conv_dim 64, 6 res blocks, "
               f"PatchGAN 4 layers instance, VGG19 + Sphere20a on, float32 "
-              f"master {tag}", flush=True)
+              f"master", flush=True)
         print(f"train ({dtype}): losses step 1 "
               f"{ {k: round(v, 5) for k, v in metrics[0].items()} }, step "
               f"5 { {k: round(v, 5) for k, v in metrics[4].items()} }, eval "
               f"{ {k: round(v, 5) for k, v in m_eval.items()} }; share of "
               f"each net's weights moved: G min {min(moved['G']):.4f}, D "
               f"mean {float(np.mean(moved['D'])):.4f}", flush=True)
-        if dtype == "bfloat16":
-            wall, kern, rows = profile_request(
-                lambda: step(st, batch),
-                Path("chiprun_out") / "profile_train_step.txt")
-            zb = sum(r[0] for r in rows if "zbuffer" in r[2])
-            print(f"profile, one bf16 train step at batch 16: wall "
-                  f"{wall:.2f} ms (profiler on), {kernel_share(kern, wall)};"
-                  f" the z-buffers {zb:.3f} ms "
-                  f"({not_measured(kern and zb / kern, '.4f')} of the "
-                  f"kernel time) {tag}", flush=True)
-            for k_ms, n, name in rows[:12]:
-                print(f"profile train: {k_ms:9.3f} ms {n:5d} x {name[:90]}")
         del st, tr, w0
         torch.cuda.empty_cache()
     w_err, t_err, cov, gap = twins
@@ -1433,12 +1017,10 @@ def train_phase(cr, smpl_ops, assets, dev, tag):
 
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
-    m_c, loss_gap, gaps, flips, cpu_s = train_step_card_vs_cpu(tt, assets,
-                                                                dev)
+    m_c, loss_gap, gaps, flips = train_step_card_vs_cpu(tt, assets, dev)
     torch.backends.cudnn.allow_tf32 = cudnn_tf32
     print(f"train step card vs CPU, float32, TF32 off (128^2, conv_dim 64, "
-          f"6 res blocks, batch 2, VGG + face on; CPU side {cpu_s:.1f} s): "
-          f"losses { {k: round(v, 5) for k, v in m_c.items()} }, max "
+          f"6 res blocks, batch 2, VGG + face on): losses { {k: round(v, 5) for k, v in m_c.items()} }, max "
           f"relative gap {loss_gap:.3e} (bound {TUNE_LOSS_RTOL}); gradient "
           f"L2 gap per tensor / over all: G {gaps['G'][0]:.3e} / "
           f"{gaps['G'][1]:.3e}, D {gaps['D'][0]:.3e} / {gaps['D'][1]:.3e} "
@@ -1452,9 +1034,7 @@ def train_phase(cr, smpl_ops, assets, dev, tag):
               gaps[n][1] <= TUNE_GRAD_ALL_RTOL,
               f"{n} gradient card vs CPU {gaps[n]}")
     check(flips <= TUNE_STEP_FLIPS, f"train step card vs CPU: {flips}")
-    by_path["train_cli"] = cli_phase(cr, tag)
-    print(f"train phase: {time.perf_counter() - t_phase:.1f} s of wall time",
-          flush=True)
+    by_path["train_cli"] = cli_phase(cr)
     return by_path, w_err, t_err
 
 
@@ -1476,23 +1056,19 @@ def psnr_db(a, b):
     return 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
 
 
-def codec_checks(native, dev, tmp, tag):
+def codec_checks(native, dev, tmp):
     """Phase 12's codec checks: 64 seeded 256² frames through the card's
     encoder and decoder (PSNR), the committed fixtures' decodes and
-    resizes. Returns (frame paths, encode ms per frame)."""
+    resizes. Returns the frame paths."""
     import numpy as np
     import torch
     s = GEOM["s"]
     frames = smooth_frames(IO_FRAMES, s, seed=3)
     fdir = tmp / "frames"
     fdir.mkdir()
-    paths, enc_ms, worst = [], [], np.inf
+    paths, worst = [], np.inf
     for i, f in enumerate(frames):
-        t = torch.from_numpy(f).to(dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        data = native.encode_jpeg(t, device=dev)
-        enc_ms.append(1e3 * (time.perf_counter() - t0))
+        data = native.encode_jpeg(torch.from_numpy(f).to(dev), device=dev)
         p = fdir / f"{i:03d}.jpg"
         p.write_bytes(data)
         paths.append(str(p))
@@ -1524,21 +1100,17 @@ def codec_checks(native, dev, tmp, tag):
                     str(fix / name), sz, dev), want),
                     f"decode_resize_u8 of {name} at {sz}")
     print(f"codec ({native.load(dev).kind} build): {IO_FRAMES} frames "
-          f"{s}^2 encoded at quality 95, 4:2:0, {np.median(enc_ms):.3f} ms a "
-          f"frame (median, host clock around a call that ends in a "
-          f"synchronise), decoded back at >= {worst:.2f} dB PSNR; fixtures "
-          f"against their OpenCV decodes (max gap, share over 2 levels) "
-          f"{gaps}; resize_u8 equal to JAX's native on all four {tag}",
-          flush=True)
-    return paths, float(np.median(enc_ms))
+          f"{s}^2 encoded at quality 95, 4:2:0, decoded back at >= "
+          f"{worst:.2f} dB PSNR; fixtures against their OpenCV decodes (max "
+          f"gap, share over 2 levels) {gaps}; resize_u8 equal to JAX's "
+          f"native on all four", flush=True)
+    return paths
 
 
-def stream_checks(cr, imi, assets, src_img, thetas, paths, native, cs, dev,
-                  tag):
+def stream_checks(cr, imi, assets, src_img, thetas, paths, native, cs, dev):
     """Phase 12's stream checks on a float32 task: u8 and I420 readback
     against the float preds, the colour transforms card vs CPU, and the
-    I420 ingest. Returns the u8 frames at 224 (numpy) and the launch
-    counts of one streamed request."""
+    I420 ingest."""
     import numpy as np
     import torch
     from impersonator_tpu_torch.config import TestConfig
@@ -1592,85 +1164,12 @@ def stream_checks(cr, imi, assets, src_img, thetas, paths, native, cs, dev,
           f"the values (max {diff.max()}); I420 readback max {gap_i420} "
           f"level(s) from rgb_to_i420 of the float preds; rgb_to_i420 card "
           f"= CPU, i420_to_rgb_device card vs CPU {rgb_gap:.2e}; I420 ingest "
-          f"vs inference {ingest_gap:.2e}; launches {launches} {tag}",
-          flush=True)
+          f"vs inference {ingest_gap:.2e}; launches {launches}", flush=True)
     del imit
     torch.cuda.empty_cache()
-    return fr_u8, launches
 
 
-def host_io_timings(cr, imit, paths, fr_u8, native, cs, dev, tag):
-    """Phase 12's host-IO leg (bf16 Imitator, batch 16, 64 JPEG frames):
-    frames/s of the u8 and I420 streams against inference on frames
-    pre-staged on the card, the split, and one profiled request. Returns
-    {path: launch counts}."""
-    import numpy as np
-    import torch
-    mode = {"u8": dict(as_uint8=True), "i420": dict(as_i420=True)}
-    imit.inference_from_paths(paths, batch=IO_BATCH, as_uint8=True)  # warm-up
-    fps, launches = {}, {}
-    for k, kw in mode.items():
-        reset_counts(cr)
-        times, _ = requests(lambda: imit.inference_from_paths(
-            paths, batch=IO_BATCH, **kw))
-        launches[f"host_io_{k}"] = read_counts(cr)
-        check(launches[f"host_io_{k}"]["zbuffer_bucket_flow"]
-              == 3 * (IO_FRAMES // IO_BATCH),
-              f"{k} stream launches {launches[f'host_io_{k}']}")
-        fps[k] = (IO_FRAMES / sorted(times)[1], times)
-    staged = torch.from_numpy(fr_u8).to(dev).float() / 127.5 - 1.0
-    ceil_t, _ = requests(lambda: imit.inference(staged, batch=IO_BATCH))
-    fps["staged"] = (IO_FRAMES / sorted(ceil_t)[1], ceil_t)
-    # the split
-    t0 = time.perf_counter()
-    ahead = 2 * IO_BATCH
-    with native.NativeImageLoader(224, threads=3, capacity=ahead, u8=True,
-                                  device=dev) as ring:
-        for p in paths[:ahead]:
-            ring.submit(p)
-        for i in range(IO_FRAMES):
-            ring.next()
-            if i + ahead < IO_FRAMES:
-                ring.submit(paths[i + ahead])
-    ring_ms = 1e3 * (time.perf_counter() - t0) / IO_FRAMES
-    pinned = torch.from_numpy(fr_u8[:IO_BATCH]).pin_memory()
-    h2d = median_ms(lambda: pinned.to(dev, non_blocking=True), 20)
-    xb = pinned.to(dev)
-
-    def step():
-        th = imit.regress_smpl_u8(xb)
-        return imit._imitate(imit.src_info, th, th[0:1, 0:3], "smooth")
-    step_ms = median_ms(step, 10)
-    pred = step()
-    d2h = {}
-    for k, pk in (("u8", cs.rgb_to_u8(pred)), ("i420", cs.rgb_to_i420(pred))):
-        host = torch.empty(pk.shape, dtype=pk.dtype, pin_memory=True)
-        d2h[k] = median_ms(lambda: host.copy_(pk, non_blocking=True), 20)
-    wall, kern, rows = profile_request(
-        lambda: imit.inference_from_paths(paths, batch=IO_BATCH,
-                                          as_uint8=True),
-        Path("chiprun_out") / "profile_host_io.txt")
-    print(f"host-IO leg (bf16 Imitator with HMR, {IO_FRAMES} JPEG frames "
-          f"{GEOM['s']}^2, batch {IO_BATCH}, median of 3): inference_from_paths as_uint8 "
-          f"{fps['u8'][0]:.1f} frames/s, as_i420 {fps['i420'][0]:.1f} "
-          f"frames/s, against inference on the same frames pre-staged on "
-          f"the card {fps['staged'][0]:.1f} frames/s (request seconds "
-          f"{ {k: [round(t, 4) for t in v[1]] for k, v in fps.items()} }) "
-          f"{tag}", flush=True)
-    print(f"host-IO split: decode + resize {ring_ms:.3f} ms a frame (the "
-          f"ring alone, 3 threads, {IO_FRAMES} frames); u8 H2D {h2d:.4f} ms "
-          f"a batch of {IO_BATCH} (pinned, CUDA events); HMR + imitation {step_ms:.3f} ms a "
-          f"batch (CUDA events); D2H u8 {d2h['u8']:.4f} ms, I420 "
-          f"{d2h['i420']:.4f} ms a batch (pinned); one streamed u8 request "
-          f"under the profiler: wall {wall:.2f} ms, {kernel_share(kern, wall)}"
-          f" {tag}", flush=True)
-    for ms, n, name in rows[:8]:
-        print(f"profile host-IO: {ms:9.3f} ms {n:5d} x {name[:90]}")
-    return launches
-
-
-def serve_checks(cr, cfg, paths, req_thetas, src_img, native, dev, enc_ms,
-                 tag):
+def serve_checks(cr, cfg, paths, req_thetas, src_img, native, dev):
     """Phase 12's HTTP checks: make_server in this process on 127.0.0.1
     (an ephemeral port) over the service's own bf16 Imitator (at cfg, on
     the config's assets, as `python -m ...cli.serve` builds it). Returns
@@ -1723,18 +1222,6 @@ def serve_checks(cr, cfg, paths, req_thetas, src_img, native, dev, enc_ms,
         code, body = call("POST", "/imitate_frames", frames_body)
         check(code == 200 and len(json.loads(body)["frames"]) == IO_BATCH,
               f"/imitate_frames {code} {body[:200]}")
-        lat, locked = {}, {}
-        for name, path, req in (("imitate", "/imitate", imitate),
-                                ("imitate_frames", "/imitate_frames",
-                                 frames_body)):
-            ts, inner = [], []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                code, body = call("POST", path, req)
-                ts.append(time.perf_counter() - t0)
-                check(code == 200, f"{path} {code}")
-                inner.append(json.loads(body)["seconds"])
-            lat[name], locked[name] = ts, sorted(inner)[1]
         code, _ = call("POST", "/imitate", b"{not json")
         check(code == 400, f"a malformed body got {code}")
         code, _ = call("POST", "/imitate", imitate)
@@ -1754,68 +1241,27 @@ def serve_checks(cr, cfg, paths, req_thetas, src_img, native, dev, enc_ms,
         check(grow <= SERVE_MEM_SLACK and
               mem[-1][1] <= mem[0][1] + SERVE_MEM_SLACK,
               f"memory grew over 10 requests: {mem[0]} -> {mem[-1]}")
-        hmr_worker, hmr_fresh = fresh_thread_cost(service, dev)
     finally:
         server.shutdown()
         thread.join(timeout=30)
         server.server_close()
         service.close()
-    med = {k: sorted(v)[1] for k, v in lat.items()}
-    print(f"serve over localhost (bf16 Imitator, batch {IO_BATCH}, median "
-          f"of 3): /imitate of {len(req_thetas)} thetas "
-          f"{1e3 * med['imitate']:.1f} ms (a JPEG each back), "
-          f"/imitate_frames of {IO_BATCH} JPEG frames "
-          f"{1e3 * med['imitate_frames']:.1f} ms (of which the model and "
-          f"the JPEG encode on the service's worker: "
-          f"{1e3 * locked['imitate']:.0f} / "
-          f"{1e3 * locked['imitate_frames']:.0f} ms); HMR at batch "
-          f"{IO_BATCH} on the worker {hmr_worker:.2f} ms, on a fresh "
-          f"thread {hmr_fresh:.2f} ms (median of 3); JPEG encode ({s}^2) "
-          f"{enc_ms:.3f} ms a frame; a malformed body 400 and the "
-          f"next 200; /imitate_video {code} (ffmpeg "
+    print(f"serve over localhost (bf16 Imitator, batch {IO_BATCH}): "
+          f"/imitate of {len(req_thetas)} thetas (a JPEG each back), "
+          f"/imitate_frames of {IO_BATCH} JPEG frames; a malformed body 400 "
+          f"and the next 200; /imitate_video {code} (ffmpeg "
           f"{'present' if have_ffmpeg() else 'absent'}); memory allocated "
           f"after 10 /imitate requests {mem[-1][0] / 2**30:.3f} GiB (first "
           f"{mem[0][0] / 2**30:.3f}), peak {mem[-1][1] / 2**30:.3f} GiB "
-          f"(first {mem[0][1] / 2**30:.3f}); launches {launches} {tag}",
+          f"(first {mem[0][1] / 2**30:.3f}); launches {launches}",
           flush=True)
     return launches
 
 
-def fresh_thread_cost(service, dev):
-    """Median ms of HMR on a batch of IO_BATCH 224² frames on the
-    service's worker thread and on a fresh thread each call (as a model
-    call on an HTTP handler thread would run): PyTorch keeps cuDNN's
-    execution plans per thread."""
-    import threading
-    import torch
-    x = torch.zeros(IO_BATCH, 224, 224, 3, device=dev)
-
-    def hmr():
-        with torch.no_grad():
-            service.imitator.regress_smpl(x)
-        torch.cuda.synchronize()
-
-    def fresh():
-        t = threading.Thread(target=hmr)
-        t.start()
-        t.join()
-
-    out = []
-    for call in (lambda: service._run(hmr), fresh):
-        call()
-        ts = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            call()
-            ts.append(1e3 * (time.perf_counter() - t0))
-        out.append(sorted(ts)[1])
-    return out
-
-
-def cli_checks(native, src_img, paths, dev, tmp, tag):
+def cli_checks(native, src_img, paths, dev, tmp):
     """Phase 12's CLI checks: each entry point as a subprocess with
-    --device cuda at 256²; run_imitator alone first (timed), then the
-    others together."""
+    --device cuda at 256²; run_imitator alone first, then the others
+    together."""
     import numpy as np
     root = Path(__file__).resolve().parent
     from impersonator_tpu_torch.utils.visualizer import write_png
@@ -1835,13 +1281,11 @@ def cli_checks(native, src_img, paths, dev, tmp, tag):
         check(proc.returncode == 0, f"{what} exited {proc.returncode}:\n"
                                     f"{out[-2000:]}\n{err[-3000:]}")
 
-    t0 = time.perf_counter()
     wait(subprocess.Popen(cmd("run_imitator", "imit", "--src_path",
                               str(src), "--tgt_path", fdir, "--name", "a"),
                           cwd=root, stdout=subprocess.PIPE,
                           stderr=subprocess.PIPE, text=True),
          "run_imitator")
-    imit_s = time.perf_counter() - t0
     jobs = {
         "run_imitator --i420": cmd("run_imitator", "imit420", "--src_path",
                                    str(src), "--tgt_path", fdir, "--i420",
@@ -1851,13 +1295,11 @@ def cli_checks(native, src_img, paths, dev, tmp, tag):
         "run_view": cmd("run_view", "view", "--src_path", str(src),
                         "--name", "d"),
         "demos imitator": cmd("demos", "demo", "imitator", "--name", "e")}
-    t1 = time.perf_counter()
     procs = {k: subprocess.Popen(v, cwd=root, stdout=subprocess.PIPE,
                                  stderr=subprocess.PIPE, text=True)
              for k, v in jobs.items()}
     for k, p in procs.items():
         wait(p, k)
-    rest_s = time.perf_counter() - t1
     for out in ("imit", "imit420"):
         preds = sorted((tmp / out).glob("pred_*"))
         check(len(preds) == IO_FRAMES and all(
@@ -1867,30 +1309,34 @@ def cli_checks(native, src_img, paths, dev, tmp, tag):
     check(len(list((tmp / "view").glob("view_*.png"))) == 16,
           "run_view did not write 16 views")
     print(f"CLIs (subprocesses, --device {dev.type}, {GEOM['s']}^2): "
-          f"run_imitator on {IO_FRAMES} frames {imit_s:.2f} s of wall time (first call: start-up, "
-          f"build check, nets, personalize, the frames, files); run_imitator "
-          f"--i420, run_swap, run_view (16 views) and demos imitator "
-          f"together {rest_s:.2f} s; {IO_FRAMES} decodable pred files each "
-          f"{tag}",
-          flush=True)
+          f"run_imitator on {IO_FRAMES} frames, then run_imitator --i420, "
+          f"run_swap, run_view (16 views) and demos imitator together; "
+          f"{IO_FRAMES} decodable pred files each", flush=True)
 
 
 def host_io_phase(cr, imi, imit_h, assets, cfg, src_img, thetas, req_thetas,
-                  dev, tag):
+                  dev):
     """Phase 12 (module docstring); returns {path: launch counts}."""
     import tempfile
     from impersonator_tpu_torch.data import native
     from impersonator_tpu_torch.ops import colorspace as cs
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        paths, enc_ms = codec_checks(native, dev, tmp, tag)
-        fr_u8, stream_launches = stream_checks(
-            cr, imi, assets, src_img, thetas, paths, native, cs, dev, tag)
-        launches = host_io_timings(cr, imit_h, paths, fr_u8, native, cs,
-                                   dev, tag)
+        paths = codec_checks(native, dev, tmp)
+        stream_checks(cr, imi, assets, src_img, thetas, paths, native, cs,
+                      dev)
+        launches = {}
+        for k, kw in (("u8", dict(as_uint8=True)),
+                      ("i420", dict(as_i420=True))):
+            reset_counts(cr)
+            imit_h.inference_from_paths(paths, batch=IO_BATCH, **kw)
+            launches[f"host_io_{k}"] = read_counts(cr)
+            check(launches[f"host_io_{k}"]["zbuffer_bucket_flow"]
+                  == IO_FRAMES // IO_BATCH,
+                  f"{k} stream launches {launches[f'host_io_{k}']}")
         launches["serve_imitate"] = serve_checks(
-            cr, cfg, paths, req_thetas, src_img, native, dev, enc_ms, tag)
-        cli_checks(native, src_img, paths, dev, tmp, tag)
+            cr, cfg, paths, req_thetas, src_img, native, dev)
+        cli_checks(native, src_img, paths, dev, tmp)
     return launches
 
 
@@ -1905,23 +1351,15 @@ def aug_train_batch(s, bs, seed):
     return batch
 
 
-def timed_steps(cr, st, batch, fns):
-    """Each fn(st, batch) in turn, CUDA events around each: (state, ms of
-    each, metrics of each as floats, launch counts over them)."""
-    import torch
-    torch.cuda.synchronize()
+def run_steps(cr, st, batch, fns):
+    """Each fn(st, batch) in turn: (state, metrics of each as floats,
+    launch counts over them)."""
     reset_counts(cr)
-    times, metrics = [], []
+    metrics = []
     for fn in fns:
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         st, m = fn(st, batch)
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
         metrics.append({k: float(v) for k, v in m.items()})
-    return st, times, metrics, read_counts(cr)
+    return st, metrics, read_counts(cr)
 
 
 def weights(st):
@@ -1955,11 +1393,9 @@ def aug_step_card_vs_cpu(ta, assets, dev):
     same weights, fresh Adam states and the CPU's raster products (128²,
     conv_dim 64, 6 res blocks, the 4-layer Global + Local D, batch 2, VGG
     and face on): (CPU losses, loss gap, G gaps, D gaps, share of
-    weights whose Adam step differs, CPU seconds)."""
-    import torch
+    weights whose Adam step differs)."""
     from impersonator_tpu_torch.config import TrainConfig
     from impersonator_tpu_torch.data.loader import stage_batch
-    t0 = time.perf_counter()
     cfg = TrainConfig(image_size=128, batch_size=2, repeat_num=6,
                       model="impersonator_trainer_aug")
     tr_c = ta.build_aug_trainer(cfg, assets, device="cpu")
@@ -1983,7 +1419,6 @@ def aug_step_card_vs_cpu(ta, assets, dev):
         out.append(({k: float(v) for k, v in m.items()},
                     {k: p.grad.cpu() for k, p in named(st)},
                     {k: p.detach().cpu() for k, p in named(st)}))
-    cpu_s = time.perf_counter() - t0
     (m_c, g_c, w_c), (m_g, g_g, w_g) = out
     loss_gap = max(abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in m_c
                    if m_c[k] != 0.0)
@@ -1998,10 +1433,10 @@ def aug_step_card_vs_cpu(ta, assets, dev):
             for n in "GD"}
     moved = sum(int((w_c[k] != w0[k]).sum()) for k in w0)
     flips = sum(int(((w_g[k] - w_c[k]).abs() > 1e-4).sum()) for k in w0)
-    return m_c, loss_gap, gaps, flips / moved, cpu_s
+    return m_c, loss_gap, gaps, flips / moved
 
 
-def aug_phase(cr, ta, assets, dev, tag):
+def aug_phase(cr, ta, assets, dev):
     """Phase 13's augmented trainer at full width in bf16 and float32;
     returns ({path: launch counts}, the float32 trainer and state)."""
     import numpy as np
@@ -2022,8 +1457,8 @@ def aug_phase(cr, ta, assets, dev, tag):
         st, _ = step(st, batch)                    # warm-up
         w0 = weights(st)
         torch.cuda.reset_peak_memory_stats()
-        st, times, metrics, launches = timed_steps(cr, st, batch,
-                                                   [step] * 5 + [step_g])
+        st, metrics, launches = run_steps(cr, st, batch,
+                                          [step] * 5 + [step_g])
         peak = torch.cuda.max_memory_allocated() - base
         path = "train_aug" if dtype == "bfloat16" else "train_aug_fp32"
         by_path[path] = launches
@@ -2038,42 +1473,25 @@ def aug_phase(cr, ta, assets, dev, tag):
         check(g_moved > 0.5 and d_moved > 0.5,
               f"{path}: weights moved G {g_moved}, D {d_moved}")
         check(master, f"{path}: the master or Adam's moments left float32")
-        ms = sorted(times[:5])[2]
-        print(f"train_aug ({dtype}): {ms:.3f} ms per G+D step (median of "
-              f"5, CUDA events; {[round(t, 3) for t in times[:5]]}), "
-              f"{bs / ms * 1e3:.2f} samples/s, G-only step {times[5]:.3f} "
-              f"ms; peak memory {peak / 2**30:.2f} GiB above the "
-              f"{base / 2**30:.2f} GiB the earlier phases hold; launches "
+        print(f"train_aug ({dtype}): peak memory {peak / 2**30:.2f} GiB above "
+              f"the {base / 2**30:.2f} GiB the earlier phases hold; launches "
               f"over 5 G+D + 1 G-only {launches}; batch 16, {s}^2, conv_dim "
               f"64, 6 res blocks, Global + Local PatchGAN 4 layers "
-              f"instance, VGG19 + Sphere20a on, float32 master {tag}",
-              flush=True)
+              f"instance, VGG19 + Sphere20a on, float32 master", flush=True)
         print(f"train_aug ({dtype}): losses step 1 "
               f"{ {k: round(v, 5) for k, v in metrics[0].items()} }, step 5 "
               f"{ {k: round(v, 5) for k, v in metrics[4].items()} }; share "
               f"of weights moved: G min {g_moved:.4f}, D mean "
               f"{d_moved:.4f}", flush=True)
         if dtype == "bfloat16":
-            wall, kern, rows = profile_request(
-                lambda: step(st, batch),
-                Path("chiprun_out") / "profile_train_aug_step.txt")
-            zb = sum(r[0] for r in rows if "zbuffer" in r[2])
-            print(f"profile, one bf16 aug step at batch 16: wall "
-                  f"{wall:.2f} ms (profiler on), {kernel_share(kern, wall)};"
-                  f" the z-buffers {zb:.3f} ms "
-                  f"({not_measured(kern and zb / kern, '.4f')} of the "
-                  f"kernel time) {tag}", flush=True)
-            for k_ms, n, name in rows[:10]:
-                print(f"profile train_aug: {k_ms:9.3f} ms {n:5d} x "
-                      f"{name[:90]}")
             del st, tr
             torch.cuda.empty_cache()
     return by_path, tr, st
 
 
-def baseline_phase(cr, tb, smpl_ops, assets, dev, tag):
+def baseline_phase(cr, tb, smpl_ops, assets, dev):
     """Phase 13's three ablation baselines at full width in float32 (VGG
-    and face on): a warm-up step, then 3 timed G+D steps each; and
+    and face on): a warm-up step, then 3 G+D steps each; and
     texture_warping's texture card vs CPU. Returns {path: launches}."""
     import numpy as np
     import torch
@@ -2092,8 +1510,7 @@ def baseline_phase(cr, tb, smpl_ops, assets, dev, tag):
         st, _ = step(st, batch)                    # warm-up
         w0 = weights(st)
         torch.cuda.reset_peak_memory_stats()
-        st, times, metrics, launches = timed_steps(cr, st, batch,
-                                                   [step] * 3)
+        st, metrics, launches = run_steps(cr, st, batch, [step] * 3)
         peak = torch.cuda.max_memory_allocated() - base
         by_path[f"train_{mode}"] = launches
         check(launches["zbuffer_bucket_rows"] == 6 and
@@ -2105,14 +1522,11 @@ def baseline_phase(cr, tb, smpl_ops, assets, dev, tag):
         check(g_moved > 0.5 and d_moved > 0.5 and master,
               f"{mode}: weights moved G {g_moved}, D {d_moved}, float32 "
               f"{master}")
-        ms = sorted(times)[1]
-        print(f"train_{mode} (float32): {ms:.3f} ms per G+D step (median "
-              f"of 3, CUDA events; {[round(t, 3) for t in times]}), "
-              f"{bs / ms * 1e3:.2f} samples/s; peak memory "
-              f"{peak / 2**30:.2f} GiB; launches over 3 steps {launches}; "
-              f"batch 16, {s}^2, conv_dim 64, 6 res blocks, PatchGAN 4 "
-              f"layers over 9 channels, VGG19 + Sphere20a on; losses step "
-              f"1 { {k: round(v, 5) for k, v in metrics[0].items()} } {tag}",
+        print(f"train_{mode} (float32): peak memory {peak / 2**30:.2f} GiB; "
+              f"launches over 3 steps {launches}; batch 16, {s}^2, conv_dim "
+              f"64, 6 res blocks, PatchGAN 4 layers over 9 channels, VGG19 "
+              f"+ Sphere20a on; losses step 1 "
+              f"{ {k: round(v, 5) for k, v in metrics[0].items()} }",
               flush=True)
         if mode == "texture_warping":
             tex_err = texture_card_vs_cpu(tr, smpl_ops, assets, batch)
@@ -2147,11 +1561,11 @@ def texture_card_vs_cpu(tr, smpl_ops, assets, batch):
     return float((out[0] - out[1]).abs().max())
 
 
-def soft_silhouette_checks(rast, soft, smpl_ops, assets, dev, tag):
+def soft_silhouette_checks(rast, soft, smpl_ops, assets, dev):
     """soft_silhouette and the gradient of a silhouette loss with respect
     to the camera on the 12,880-face body, card vs CPU at 128² (batch 1),
-    and the card's forward + backward time and peak memory at 256²
-    (batch 2). Returns (max |dsil|, gradient gap)."""
+    and the card's forward + backward peak memory at 256² (batch 2).
+    Returns (max |dsil|, gradient gap)."""
     import numpy as np
     import torch
     params = smpl_ops.SMPLParams.from_assets(assets, "cpu")
@@ -2169,24 +1583,20 @@ def soft_silhouette_checks(rast, soft, smpl_ops, assets, dev, tag):
         loss.backward()
         return sil.detach().cpu(), cam.grad.cpu()
 
-    t0 = time.perf_counter()
     sil_c, g_c = run("cpu", info["cam"][:1], info["verts"][:1], 128)
-    cpu_s = time.perf_counter() - t0
     sil_g, g_g = run(dev, info["cam"][:1], info["verts"][:1], 128)
     sil_err = float((sil_g - sil_c).abs().max())
     g_gap = float((g_g - g_c).norm() / g_c.norm())
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ms = median_ms(lambda: run(dev, info["cam"], info["verts"], GEOM["s"]),
-                   3)
+    run(dev, info["cam"], info["verts"], GEOM["s"])
     peak = torch.cuda.max_memory_allocated() - base
     print(f"soft_silhouette, 12,880 faces: card vs CPU at 128^2 max |dsil| "
           f"{sil_err} (bound {SIL_TOL}), camera gradient relative L2 gap "
-          f"{g_gap:.3e} (bound {SIL_GRAD_RTOL}; CPU side {cpu_s:.1f} s); "
-          f"forward + backward at {GEOM['s']}^2, batch 2: {ms:.3f} ms "
-          f"(median of 3, CUDA events), peak memory {peak / 2**30:.2f} GiB "
-          f"(each face chunk recomputed in the backward) {tag}", flush=True)
+          f"{g_gap:.3e} (bound {SIL_GRAD_RTOL}); forward + backward at "
+          f"{GEOM['s']}^2, batch 2: peak memory {peak / 2**30:.2f} GiB "
+          f"(each face chunk recomputed in the backward)", flush=True)
     check(sil_err <= SIL_TOL, f"soft silhouette card vs CPU {sil_err}")
     check(g_gap <= SIL_GRAD_RTOL, f"soft silhouette gradient {g_gap}")
     return sil_err, g_gap
@@ -2244,7 +1654,7 @@ def write_data_tree(root, native, dev, s):
     return iper, place, fashion
 
 
-def disk_data_step(cr, ta, native, tr, st, dev, tag):
+def disk_data_step(cr, ta, native, tr, st, dev):
     """The tree of write_data_tree read by dataset_by_name(
     "iPER_fashion_place") through the loader on the card (4 threads,
     nvJPEG) into one float32 aug step. Returns the step's launches."""
@@ -2255,9 +1665,7 @@ def disk_data_step(cr, ta, native, tr, st, dev, tag):
     from impersonator_tpu_torch.data.loader import DataLoader
     s = GEOM["s"]
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
         iper, place, fashion = write_data_tree(tmp, native, dev, s)
-        t1 = time.perf_counter()
         cfg = dataclasses.replace(tr.cfg, data_dir=iper, place_dir=place,
                                   fashion_dir=fashion)
         ds = dataset_by_name("iPER_fashion_place", cfg, device=dev)
@@ -2266,30 +1674,26 @@ def disk_data_step(cr, ta, native, tr, st, dev, tag):
                                   device=dev))
         check(len(batches) == 1, f"disk batches {len(batches)}")
         batch = batches[0]
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
     check(batch["images"].shape == (16, 2, 3, s, s) and
           batch["bg"].shape == (16, 3, s, s) and
           batch["images"].device.type == torch.device(dev).type,
           f"disk batch {[(k, tuple(v.shape)) for k, v in batch.items()]}")
-    st, _, metrics, launches = timed_steps(
-        cr, st, batch, [ta.make_aug_train_step(tr)])
+    st, metrics, launches = run_steps(cr, st, batch,
+                                      [ta.make_aug_train_step(tr)])
     check(launches["zbuffer_bucket_rows"] == 1 and
           launches["zbuffer_bucket_flow"] == 1,
           f"disk aug step launches {launches}")
     check(np.isfinite(list(metrics[0].values())).all(),
           f"disk aug step losses {metrics[0]}")
     print(f"iPER + Places2 + DeepFashion on disk (60 JPEGs from the card's "
-          f"encoder, {t1 - t0:.2f} s): iPER_fashion_place, 16 items, one "
-          f"batch of 16 through the loader on the card (4 threads, nvJPEG) "
-          f"{t2 - t1:.2f} s with set-up; one float32 aug step on it, "
-          f"launches {launches}, losses "
-          f"{ {k: round(v, 5) for k, v in metrics[0].items()} } {tag}",
-          flush=True)
+          f"encoder): iPER_fashion_place, 16 items, one batch of 16 through "
+          f"the loader on the card (4 threads, nvJPEG); one float32 aug "
+          f"step on it, launches {launches}, losses "
+          f"{ {k: round(v, 5) for k, v in metrics[0].items()} }", flush=True)
     return launches
 
 
-def trainer_cli_runs(cr, tag):
+def trainer_cli_runs(cr):
     """cli.train.main in-process on the card at 256², batch 16, one epoch
     of the synthetic data (64 items: 4 steps) for --model
     impersonator_trainer_aug (synthetic_bg) and --model feature_warping.
@@ -2302,13 +1706,11 @@ def trainer_cli_runs(cr, tag):
     with tempfile.TemporaryDirectory() as tmp:
         for model, (rows, flow, path) in want.items():
             reset_counts(cr)
-            t0 = time.perf_counter()
             state = cli.main(["--model", model, "--image_size",
                               str(GEOM["s"]), "--batch_size", "16",
                               "--nepochs_no_decay", "1", "--nepochs_decay",
                               "0", "--checkpoints_dir", tmp, "--name",
                               model])
-            dt = time.perf_counter() - t0
             launches = read_counts(cr)
             by_path[path] = launches
             names = {p.name for p in (Path(tmp) / model).iterdir()}
@@ -2321,13 +1723,12 @@ def trainer_cli_runs(cr, tag):
                   launches["zbuffer_bucket_flow"] == flow,
                   f"{model} cli launches {launches}")
             print(f"cli.train --model {model}: one epoch (4 steps, batch "
-                  f"16, {GEOM['s']}^2, float32, dataset auto) {dt:.2f} s "
-                  f"with set-up, checkpoint files written, launches "
-                  f"{launches} {tag}", flush=True)
+                  f"16, {GEOM['s']}^2, float32, dataset auto), checkpoint "
+                  f"files written, launches {launches}", flush=True)
     return by_path
 
 
-def remaining_trainers_phase(cr, smpl_ops, assets, dev, tag):
+def remaining_trainers_phase(cr, smpl_ops, assets, dev):
     """Phase 13 (module docstring); returns {path: launch counts}."""
     import torch
     from impersonator_tpu_torch.data import native
@@ -2335,19 +1736,16 @@ def remaining_trainers_phase(cr, smpl_ops, assets, dev, tag):
     from impersonator_tpu_torch.ops import soft_raster as soft
     from impersonator_tpu_torch.tasks import trainer_aug as ta
     from impersonator_tpu_torch.tasks import trainer_baseline as tb
-    t_phase = time.perf_counter()
-    by_path, tr, st = aug_phase(cr, ta, assets, dev, tag)
-    by_path["train_aug_disk"] = disk_data_step(cr, ta, native, tr, st, dev,
-                                               tag)
+    by_path, tr, st = aug_phase(cr, ta, assets, dev)
+    by_path["train_aug_disk"] = disk_data_step(cr, ta, native, tr, st, dev)
     del st, tr
     torch.cuda.empty_cache()
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
-    m_c, loss_gap, gaps, flips, cpu_s = aug_step_card_vs_cpu(ta, assets, dev)
+    m_c, loss_gap, gaps, flips = aug_step_card_vs_cpu(ta, assets, dev)
     torch.backends.cudnn.allow_tf32 = cudnn_tf32
     print(f"train_aug step card vs CPU, float32, TF32 off (128^2, conv_dim "
-          f"64, 6 res blocks, batch 2, VGG + face on; CPU side {cpu_s:.1f} "
-          f"s): losses { {k: round(v, 5) for k, v in m_c.items()} }, max "
+          f"64, 6 res blocks, batch 2, VGG + face on): losses { {k: round(v, 5) for k, v in m_c.items()} }, max "
           f"relative gap {loss_gap:.3e} (bound {TUNE_LOSS_RTOL}); gradient "
           f"L2 gap per tensor / over all: G {gaps['G'][0]:.3e} / "
           f"{gaps['G'][1]:.3e}, D {gaps['D'][0]:.3e} / {gaps['D'][1]:.3e} "
@@ -2361,23 +1759,13 @@ def remaining_trainers_phase(cr, smpl_ops, assets, dev, tag):
               gaps[n][1] <= TUNE_GRAD_ALL_RTOL,
               f"aug {n} gradient card vs CPU {gaps[n]}")
     check(flips <= TUNE_STEP_FLIPS, f"aug step card vs CPU: {flips}")
-    by_path.update(baseline_phase(cr, tb, smpl_ops, assets, dev, tag))
-    soft_silhouette_checks(rast, soft, smpl_ops, assets, dev, tag)
-    by_path.update(trainer_cli_runs(cr, tag))
-    print(f"remaining trainers phase: {time.perf_counter() - t_phase:.1f} s "
-          f"of wall time", flush=True)
+    by_path.update(baseline_phase(cr, tb, smpl_ops, assets, dev))
+    soft_silhouette_checks(rast, soft, smpl_ops, assets, dev)
+    by_path.update(trainer_cli_runs(cr))
     return by_path
 
 
 # -- phase 14: the evaluation suite ------------------------------------------
-
-def items_per_s(fn, n_items, reps=3):
-    """n_items / the median host seconds of fn() over reps calls, each
-    ending in a synchronise, after one warm-up call."""
-    import statistics
-    times, _ = requests(fn, reps + 1)
-    return n_items / statistics.median(times[1:])
-
 
 def rel_gap(card, cpu):
     """max |card - cpu| / max |cpu| (card's tensor brought to the host)."""
@@ -2422,10 +1810,10 @@ def he_init(net, generator):
                 m.bias.zero_()
 
 
-def metric_nets_checks(dev, tag):
+def metric_nets_checks(dev):
     """Phase 14's nets at full size, float32 without TF32: LPIPS on 64
-    pairs at 256² and each embed net on 64 images, batch 16 (items/s);
-    each against the CPU on the same weights and inputs."""
+    pairs at 256² and each embed net on 64 images, batch 16; each against
+    the CPU on the same weights and inputs. Returns the seeded nets."""
     import numpy as np
     import torch
     from impersonator_tpu_torch.cli import evaluate as ev
@@ -2438,25 +1826,20 @@ def metric_nets_checks(dev, tag):
     a_c, b_c = x[:EVAL_IMAGES], x[EVAL_IMAGES:]
     a_g, b_g = a_c.to(dev), b_c.to(dev)
 
-    t0 = time.perf_counter()
     lp_g = ev.lpips_apply_fn(ev.load_lpips(ev.REAL_LPIPS_LIN, dev))
     lp_c = ev.lpips_apply_fn(ev.load_lpips(ev.REAL_LPIPS_LIN, cpu))
-    pairs_s = items_per_s(lambda: [lp_g(a_g[i:i + 16], b_g[i:i + 16])
-                                   for i in range(0, EVAL_IMAGES, 16)],
-                          EVAL_IMAGES)
+    for i in range(0, EVAL_IMAGES, 16):
+        lp_g(a_g[i:i + 16], b_g[i:i + 16])
     lp_rel = rel_gap(lp_g(a_g[:16], b_g[:16]), lp_c(a_c[:16], b_c[:16]))
     print(f"LPIPS (alex, the repository's v0.1 lin heads, a seeded "
-          f"backbone), {EVAL_IMAGES} pairs at {GEOM['s']}^2, batch 16: "
-          f"{pairs_s:.1f} pairs/s; card vs CPU on 16 pairs {lp_rel:.3e} "
-          f"(bound {EVAL_NET_RTOL}); {time.perf_counter() - t0:.1f} s "
-          f"{tag}", flush=True)
+          f"backbone), {EVAL_IMAGES} pairs at {GEOM['s']}^2, batch 16; card "
+          f"vs CPU on 16 pairs {lp_rel:.3e} (bound {EVAL_NET_RTOL})",
+          flush=True)
     check(lp_rel <= EVAL_NET_RTOL, f"LPIPS card vs CPU {lp_rel}")
 
-    t0 = time.perf_counter()
     inc_c = seeded_net(zoo.InceptionV3, 41, torch.no_grad()(he_init))
     inc_fn_g = unpaired.inception_embed_fn(copy.deepcopy(inc_c).to(dev))
     inc_fn_c = unpaired.inception_embed_fn(inc_c)
-    inc_s = items_per_s(lambda: batched(inc_fn_g, a_g), EVAL_IMAGES)
     pool_g, probs_g = batched(inc_fn_g, a_g)
     pool_c, probs_c = batched(inc_fn_c, a_c)
     pool_rel, probs_rel = rel_gap(pool_g, pool_c), rel_gap(probs_g, probs_c)
@@ -2472,12 +1855,11 @@ def metric_nets_checks(dev, tag):
     fid_rel = abs(fid_g - fid_c) / abs(fid_c)
     is_g = unpaired.inception_score(probs_g.cpu().numpy())
     print(f"InceptionV3 (seeded), {EVAL_IMAGES} images resized to 299^2, "
-          f"batch 16: {inc_s:.1f} images/s; card vs CPU: pool3 "
+          f"batch 16; card vs CPU: pool3 "
           f"{pool_rel:.3e}, probs {probs_rel:.3e} (bound {EVAL_NET_RTOL}); "
           f"FID of {half} vs {half} images card {fid_g:.6f}, CPU "
           f"{fid_c:.6f}, relative gap {fid_rel:.3e} (bound {EVAL_FID_RTOL});"
-          f" IS {is_g:.6f}; {time.perf_counter() - t0:.1f} s {tag}",
-          flush=True)
+          f" IS {is_g:.6f}", flush=True)
     check(pool_rel <= EVAL_NET_RTOL, f"InceptionV3 pool3 card vs CPU "
           f"{pool_rel}")
     check(fid_rel <= EVAL_FID_RTOL, f"FID card vs CPU {fid_rel}")
@@ -2492,29 +1874,25 @@ def metric_nets_checks(dev, tag):
         "OSNet": (reid.osnet_reid_embed_fn, seeded_net(reid.OSNet, 45)),
         "PCB": (reid.pcb_reid_embed_fn, seeded_net(reid.PCBReid, 46)),
     }
-    rates = {}
     for name, (make_fn, net_c) in nets.items():
-        t0 = time.perf_counter()
         fn_g = make_fn(copy.deepcopy(net_c).to(dev))
-        rates[name] = items_per_s(lambda: batched(fn_g, a_g), EVAL_IMAGES)
+        batched(fn_g, a_g)
         gap = rel_gap(fn_g(a_g[:4]), make_fn(net_c)(a_c[:4]))
         print(f"{name} (seeded) embeddings of {EVAL_IMAGES} images, batch "
-              f"16: {rates[name]:.1f} images/s; card vs CPU on 4 images "
-              f"{gap:.3e} (bound {EVAL_NET_RTOL}); "
-              f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+              f"16; card vs CPU on 4 images {gap:.3e} (bound "
+              f"{EVAL_NET_RTOL})", flush=True)
         check(gap <= EVAL_NET_RTOL, f"{name} card vs CPU {gap}")
     seeded = {"inception": inc_c, "facenet_ir": nets["InceptionResnetV1"][1],
               "senet50": nets["SENet50"][1], "sphere": nets["Sphere20a"][1],
               "osnet": nets["OSNet"][1], "pcb": nets["PCB"][1]}
-    return ({"lpips_pairs_s": pairs_s, "inception_images_s": inc_s,
-             **rates}, seeded)
+    return seeded
 
 
-def mtcnn_checks(dev, tag):
+def mtcnn_checks(dev):
     """MTCNN with the repository's weights on EVAL_MTCNN frames (16 of
-    256²), each with a drawn face (scenes.face_image): frames/s of detect
-    on the card, and the CPU's boxes: the same count per frame, corners
-    within EVAL_BOX_PX."""
+    256²), each with a drawn face (scenes.face_image), on the card and
+    the CPU: the same count of boxes per frame, corners within
+    EVAL_BOX_PX."""
     import numpy as np
     from impersonator_tpu_torch.cli import evaluate as ev
     from impersonator_tpu_torch.metrics.mtcnn import load_mtcnn
@@ -2524,10 +1902,8 @@ def mtcnn_checks(dev, tag):
     imgs = np.stack([face_image(s, s, *rng.uniform(0.375 * s, 0.625 * s, 2),
                                 rng.uniform(0.12 * s, 0.21 * s), seed=i)
                      for i in range(n)])
-    t0 = time.perf_counter()
     det_g = load_mtcnn(ev.REAL_MTCNN, device=dev)
     det_c = load_mtcnn(ev.REAL_MTCNN, device="cpu")
-    fps = items_per_s(lambda: det_g.detect(imgs), len(imgs))
     boxes_g, _ = det_g.detect(imgs)
     boxes_c, _ = det_c.detect(imgs)
     counts = [len(b) for b in boxes_c]
@@ -2539,12 +1915,10 @@ def mtcnn_checks(dev, tag):
                            - bc[np.argsort(bc[:, 0]), :4]).max())
               for bg, bc in zip(boxes_g, boxes_c) if len(bc))
     print(f"MTCNN (the repository's P / R / O-net weights) on {n} frames "
-          f"of {s}^2: {fps:.1f} frames/s; {sum(counts)} boxes on both devices "
-          f"({counts}), corners card vs CPU within {gap:.3e} px (bound "
-          f"{EVAL_BOX_PX}); {time.perf_counter() - t0:.1f} s {tag}",
+          f"of {s}^2: {sum(counts)} boxes on both devices ({counts}), "
+          f"corners card vs CPU within {gap:.3e} px (bound {EVAL_BOX_PX})",
           flush=True)
     check(gap <= EVAL_BOX_PX, f"MTCNN boxes card vs CPU {gap}")
-    return fps
 
 
 def write_eval_tree(root, native, dev):
@@ -2716,7 +2090,7 @@ def write_yolo(root, seed=49):
     return str(cfg), str(weights)
 
 
-def write_eval_weights(root, seeded, tag):
+def write_eval_weights(root, seeded):
     """The evaluator's weight files of phase 14's seeded nets, written on
     this host without flax: each net's state dict (the reference's keys)
     through utils.convert.TO_JAX and utils.checkpoint.write_flax_msgpack;
@@ -2728,7 +2102,6 @@ def write_eval_weights(root, seeded, tag):
     from impersonator_tpu_torch.utils.checkpoint import (flax_msgpack_bytes,
                                                          read_flax_msgpack,
                                                          write_flax_msgpack)
-    t0 = time.perf_counter()
     flags = {"inception": "--inception_path", "facenet_ir": "--facenet_path",
              "senet50": "--senet_path", "sphere": "--sphere_path",
              "osnet": "--osnet_path", "pcb": "--pcb_path"}
@@ -2749,8 +2122,8 @@ def write_eval_weights(root, seeded, tag):
     print(f"evaluator weight files written on this host (TO_JAX + "
           f"write_flax_msgpack, each read back bit-equal): "
           f"{ {k: f'{v / 2**20:.1f} MiB' for k, v in sizes.items()} }, a "
-          f"seeded darknet graph for --yolo_cfg / --yolo_weights; "
-          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+          f"seeded darknet graph for --yolo_cfg / --yolo_weights",
+          flush=True)
     return out
 
 
@@ -2808,28 +2181,27 @@ def eval_terms():
         UnpairedMetricRunner._fd = staticmethod(fd)
 
 
-def evaluate_cli_checks(cr, native, dev, tag, weights):
+def evaluate_cli_checks(cr, native, dev, weights):
     """cli.evaluate.main on the card on write_eval_tree's tree (256²,
     conv_dim 64, 6 res blocks, bf16) with every extractor: LPIPS on the
     repository's lin heads, MTCNN on its weights, ``weights``' InceptionV3,
     InceptionResnetV1 (the face net; SENet50 and Sphere20a are its
-    fallbacks, also passed), OSNet, PCB and YOLO files, and --sspe: wall
-    seconds, evaluated frames/s, exact launch counts; then the same
+    fallbacks, also passed), OSNet, PCB and YOLO files, and --sspe: the
+    frames evaluated, exact launch counts; then the same
     command in float32 with TF32 off, one video and --max_frames 4 on the
     card and on the CPU (card_decoder_for_cpu), every key of results.json
     (self_imitation, cross_imitation, per_video) within eval_gap's bound.
-    Returns ({path: launch counts}, wall seconds, frames evaluated)."""
+    Returns {path: launch counts}."""
     import os
     import tempfile
     import numpy as np
     import torch
     from impersonator_tpu_torch.cli import evaluate as ev
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
         proto = write_eval_tree(tmp, native, dev)
         print(f"evaluation tree: {EVAL_VIDEOS * EVAL_FRAMES} JPEGs of "
-              f"{GEOM['s']}^2 from the card's encoder and their θs "
-              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+              f"{GEOM['s']}^2 from the card's encoder and their θs",
+              flush=True)
         base = ["--data_dir", tmp, "--protocol_file", proto,
                 "--lpips_path", ev.REAL_LPIPS_LIN, "--image_size",
                 str(GEOM["s"]), "--checkpoints_dir",
@@ -2838,10 +2210,7 @@ def evaluate_cli_checks(cr, native, dev, tag, weights):
                 *[a for kv in weights.items() for a in kv]]
         out = os.path.join(tmp, "out")
         reset_counts(cr)
-        t0 = time.perf_counter()
         res = ev.main(base + ["--output_dir", out, "--device", dev.type])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         launches = read_counts(cr)
         n = res["num_si_frames"] + res["num_ci_frames"]
         # per video: personalize (1 rows), self- and cross-imitation in
@@ -2862,13 +2231,12 @@ def evaluate_cli_checks(cr, native, dev, tag, weights):
         check("Self-imitation Results" in Path(out, "results.txt")
               .read_text(), "results.txt")
         print(f"cli.evaluate (bf16, {EVAL_VIDEOS} videos x {EVAL_FRAMES} "
-              f"frames, self- and cross-imitation): {wall:.2f} s with "
-              f"set-up, {n} frames evaluated, {n / wall:.1f} frames/s, "
-              f"{wall / EVAL_VIDEOS:.2f} s a video; self-imitation "
+              f"frames, self- and cross-imitation): {n} frames evaluated; "
+              f"self-imitation "
               f"{ {k: round(v, 5) for k, v in res['self_imitation'].items()} }"
               f", cross-imitation "
               f"{ {k: round(v, 5) for k, v in res['cross_imitation'].items()} }"
-              f"; launches {launches} {tag}", flush=True)
+              f"; launches {launches}", flush=True)
 
         cmp = base + ["--compute_dtype", "float32", "--max_videos", "1",
                       "--max_frames", "4"]
@@ -2880,11 +2248,9 @@ def evaluate_cli_checks(cr, native, dev, tag, weights):
         res_g = ev.main(cmp + ["--output_dir", os.path.join(tmp, "g"),
                                "--device", dev.type])
         launches_32 = read_counts(cr)
-        t0 = time.perf_counter()
         with card_decoder_for_cpu(native), eval_terms() as terms:
             res_c = ev.main(cmp + ["--output_dir", os.path.join(tmp, "c"),
                                    "--device", "cpu"])
-        cpu_s = time.perf_counter() - t0
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags
         check(launches_32["zbuffer_bucket_rows"] == 1 and
@@ -2906,7 +2272,7 @@ def evaluate_cli_checks(cr, native, dev, tag, weights):
         check(sorted(gaps) == sorted(set(EVAL_SELF_KEYS + EVAL_CROSS_KEYS)),
               f"float32 results hold {sorted(gaps)}")
         print(f"cli.evaluate float32 (TF32 off), one video, --max_frames "
-              f"4, card vs CPU (CPU side {cpu_s:.1f} s): self-imitation card "
+              f"4, card vs CPU: self-imitation card "
               f"{ {k: round(v, 6) for k, v in res_g['self_imitation'].items()} }"
               f", cross-imitation card "
               f"{ {k: round(v, 6) for k, v in res_g['cross_imitation'].items()} }"
@@ -2914,28 +2280,20 @@ def evaluate_cli_checks(cr, native, dev, tag, weights):
               f"(bounds {bounds}; the distances' relative to their CPU "
               f"terms { {k: f'{terms[res_c['cross_imitation'][k]]:.4g}' for k in EVAL_FD_KEYS} } "
               f"in cross-imitation, the others absolute); launches "
-              f"{launches_32} {tag}",
-              flush=True)
+              f"{launches_32}", flush=True)
         for k, gap in gaps.items():
             check(gap <= bounds[k], f"cli.evaluate {k} card vs CPU {gap}")
-    return ({"evaluate_cli": launches, "evaluate_cli_fp32": launches_32},
-            wall, n)
+    return {"evaluate_cli": launches, "evaluate_cli_fp32": launches_32}
 
 
-def evaluation_phase(cr, native, dev, tag):
+def evaluation_phase(cr, native, dev):
     """Phase 14 (module docstring); returns {path: launch counts}."""
     import tempfile
-    t_phase = time.perf_counter()
-    rates, seeded = metric_nets_checks(dev, tag)
-    rates["mtcnn_frames_s"] = mtcnn_checks(dev, tag)
+    seeded = metric_nets_checks(dev)
+    mtcnn_checks(dev)
     with tempfile.TemporaryDirectory() as wdir:
-        weights = write_eval_weights(Path(wdir), seeded, tag)
-        by_path, wall, n = evaluate_cli_checks(cr, native, dev, tag, weights)
-    print(f"evaluation phase: {time.perf_counter() - t_phase:.1f} s of "
-          f"wall time; items/s { {k: round(v, 1) for k, v in rates.items()} }"
-          f", cli.evaluate {wall:.2f} s for {n} frames {tag}", flush=True)
-    return by_path
-
+        weights = write_eval_weights(Path(wdir), seeded)
+        return evaluate_cli_checks(cr, native, dev, weights)
 
 
 # -- phase 15: the multi-card code paths on one card -------------------------
@@ -2959,48 +2317,28 @@ def mc_trainer(tt, assets, dev):
 
 def mc_step(tt, tr, batch):
     """One G+D step from the config's seeded weights and fresh Adam ->
-    (losses, gradients, parameters after the step, ms of the step: CUDA
-    events around it, the all-reduce of a group included)."""
-    import torch
+    (losses, gradients, parameters after the step)."""
     st = tr.init_state()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
     st, m = tt.make_train_step(tr, train_d=True)(st, batch)
-    b.record()
-    b.synchronize()
     named = [(f"{n}.{k}", p) for n, net in (("G", st.generator),
                                             ("D", st.discriminator))
              for k, p in net.named_parameters()]
     return ({k: float(v) for k, v in m.items()},
             {k: p.grad.detach().clone() for k, p in named},
-            {k: p.detach().clone() for k, p in named}, a.elapsed_time(b))
+            {k: p.detach().clone() for k, p in named})
 
 
 def process_state():
     """What phase 15 could leave behind in this process, and how the host
     runs now: torch's intra- and inter-op threads, the cuDNN and matmul
     flags, whether a process group is up, Python's and the OS's threads,
-    live child processes, the load average, the ms of a fixed float32 CPU
-    conv (median of 3), this process's user and system CPU seconds so far
-    (getrusage), and glibc's heap (mallinfo2: the arenas' bytes, the free
-    bytes inside them, the mmapped bytes). The system seconds a later
-    phase adds are the kernel's work of giving it fresh memory."""
+    live child processes, the load average and glibc's heap (mallinfo2:
+    the arenas' bytes, the free bytes inside them, the mmapped bytes)."""
     import ctypes
     import multiprocessing
     import os
-    import resource
     import threading
     import torch
-    import torch.nn.functional as F
-    x = torch.randn(2, 64, 128, 128,
-                    generator=torch.Generator().manual_seed(0))
-    w = torch.randn(64, 64, 3, 3, generator=torch.Generator().manual_seed(1))
-    ms = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        F.conv2d(x, w, padding=1)
-        ms.append((time.perf_counter() - t0) * 1e3)
 
     class MallInfo2(ctypes.Structure):
         _fields_ = [(n, ctypes.c_size_t) for n in (
@@ -3015,7 +2353,6 @@ def process_state():
                 "mmapped_mib": mi.hblkhd >> 20}
     except (OSError, AttributeError):
         heap = None
-    ru = resource.getrusage(resource.RUSAGE_SELF)
     with open("/proc/self/status") as f:
         os_threads = next((int(ln.split()[1]) for ln in f
                            if ln.startswith("Threads:")), None)
@@ -3029,10 +2366,7 @@ def process_state():
             "py_threads": threading.active_count(),
             "os_threads": os_threads,
             "children": len(multiprocessing.active_children()),
-            "loadavg": os.getloadavg(),
-            "cpu_conv_ms": round(sorted(ms)[1], 3),
-            "utime_s": round(ru.ru_utime, 1),
-            "stime_s": round(ru.ru_stime, 1), "heap": heap}
+            "loadavg": os.getloadavg(), "heap": heap}
 
 
 def gloo_rank(rank, port, out_dir, dev_type):
@@ -3042,8 +2376,8 @@ def gloo_rank(rank, port, out_dir, dev_type):
     gloo group of two a probe all-reduce of a CUDA tensor,
     all_reduce_mean_ of that step's gradients, and the same step again,
     whose gradients and losses step_nets averages with the other
-    process's. Writes both steps' losses, gradients and ms, the
-    collective's result, the parameters and the launch counts of the
+    process's. Writes both steps' losses and gradients, the collective's
+    result, the parameters and the launch counts of the
     group's step to out_dir/rank{rank}.pt."""
     import torch
     import torch.distributed as dist
@@ -3064,7 +2398,7 @@ def gloo_rank(rank, port, out_dir, dev_type):
     full = train_batch(GEOM["s"], MC_BATCH, MC_SEED)
     batch = stage_batch({k: v[rank * half:(rank + 1) * half]
                          for k, v in full.items()}, dev)
-    m_alone, g_alone, _, ms_alone = mc_step(tt, tr, batch)
+    m_alone, g_alone, _ = mc_step(tt, tr, batch)
     check(pdist.init_distributed(f"127.0.0.1:{port}", 2, rank,
                                  backend="gloo", device=dev),
           f"rank {rank} is not in a group of 2")
@@ -3075,13 +2409,13 @@ def gloo_rank(rank, port, out_dir, dev_type):
     coll = [v.clone() for v in g_alone.values()]
     pdist.all_reduce_mean_(coll)
     reset_counts(cr)
-    m, g, p, ms = mc_step(tt, tr, batch)
+    m, g, p = mc_step(tt, tr, batch)
     launches = read_counts(cr)
     torch.save({"metrics": m, "grads": {k: v.cpu() for k, v in g.items()},
                 "alone": (m_alone, {k: v.cpu() for k, v in g_alone.items()}),
                 "collective": {k: v.cpu() for k, v in zip(g_alone, coll)},
                 "params": {k: v.cpu() for k, v in p.items()},
-                "ms": (ms_alone, ms), "launches": launches,
+                "launches": launches,
                 "device": str(dev)},
                Path(out_dir) / f"rank{rank}.pt")
     dist.destroy_process_group()
@@ -3092,10 +2426,10 @@ def max_loss_gap(a, b):
     return max(abs(a[k] - v) / max(abs(v), 1e-3) for k, v in b.items())
 
 
-def nccl_world_one(tt, tr, batch, backend, tag):
+def nccl_world_one(tt, tr, batch, backend):
     """Phase 15 (a): the step twice without a process group, then under
-    a process group of one (NCCL on the card) -> (the first plain run's
-    losses and gradients on the host, ms of the two plain steps)."""
+    a process group of one (NCCL on the card) -> the first plain run's
+    losses and gradients on the host."""
     import torch
     import torch.distributed as dist
     from impersonator_tpu_torch.parallel import distributed as pdist
@@ -3106,13 +2440,13 @@ def nccl_world_one(tt, tr, batch, backend, tag):
         "a group of one reports more processes")
     try:
         got = dist.get_backend()
-        m_d, g_d, p_d, ms_d = mc_step(tt, tr, batch)
+        m_d, g_d, p_d = mc_step(tt, tr, batch)
         again = {k: v.clone() for k, v in g_d.items()}
         pdist.all_reduce_mean_(list(again.values()))
         identity = all(torch.equal(again[k], g_d[k]) for k in g_d)
     finally:
         dist.destroy_process_group()
-    (m0, g0, p0, ms0), (m1, g1, p1, ms1) = plain
+    (m0, g0, p0), (m1, g1, p1) = plain
     gaps = {"losses": (max_loss_gap(m1, m0), max_loss_gap(m_d, m0)),
             "gradients": (tensor_gaps(g1, g0)[1], tensor_gaps(g_d, g0)[1]),
             "parameters": (tensor_gaps(p1, p0)[1],
@@ -3124,9 +2458,8 @@ def nccl_world_one(tt, tr, batch, backend, tag):
           f"plain step (two plain steps' own gap): "
           + ", ".join(f"{k} {v[1]:.3e} ({v[0]:.3e})"
                       for k, v in gaps.items())
-          + f" (losses: max relative; gradients, parameters: L2 over "
-            f"all); ms of the plain steps {ms0:.3f}, {ms1:.3f}, in the "
-            f"group {ms_d:.3f} {tag}", flush=True)
+          + " (losses: max relative; gradients, parameters: L2 over all)",
+          flush=True)
     check(got == (backend or "nccl"), f"process group backend {got}")
     check(identity, "all_reduce_mean_ over one process changed a gradient")
     # bit-equal where the plain step is itself deterministic; where its
@@ -3137,10 +2470,10 @@ def nccl_world_one(tt, tr, batch, backend, tag):
         check(group_gap <= MC_NONDET_FACTOR * plain_gap,
               f"group of one: {k} gap {group_gap} against {plain_gap} "
               f"between two plain steps")
-    return m0, {k: v.cpu() for k, v in g0.items()}, [ms0, ms1]
+    return m0, {k: v.cpu() for k, v in g0.items()}
 
 
-def gloo_two_ranks(one, halves, one_ms, dev, tag):
+def gloo_two_ranks(one, halves, dev):
     """Phase 15 (b): two processes on the one card under gloo, each on 8
     of the 16 samples. all_reduce_mean_ of their steps' gradients alone
     must be the mean of those gradients, bit for bit; the step in the
@@ -3152,12 +2485,10 @@ def gloo_two_ranks(one, halves, one_ms, dev, tag):
     import tempfile
     import torch
     import torch.multiprocessing as mp
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out:
         mp.spawn(gloo_rank, args=(free_port(), out, dev.type), nprocs=2,
                  join=True)
         ranks = [torch.load(Path(out) / f"rank{r}.pt") for r in range(2)]
-    wall = time.perf_counter() - t0
     r0, r1 = ranks
     check(r0["metrics"] == r1["metrics"], "the ranks' averaged losses differ")
     check(all(torch.equal(r0["params"][k], r1["params"][k])
@@ -3198,15 +2529,7 @@ def gloo_two_ranks(one, halves, one_ms, dev, tag):
           f"{gaps['G'][1]:.3e} (bounds {MC_GRAD_RTOL['G']}), D "
           f"{gaps['D'][0]:.3e} / {gaps['D'][1]:.3e} (bounds "
           f"{MC_GRAD_RTOL['D']}); both ranks' parameters bit-equal after "
-          f"Adam; {wall:.1f} s of wall time with the processes' start-up "
-          f"{tag}", flush=True)
-    print(f"multi-card (b): ms a G+D step (CUDA events; alone, then in the "
-          f"group with the gloo all-reduce through the host) rank 0 "
-          f"{[round(x, 3) for x in r0['ms']]}, rank 1 "
-          f"{[round(x, 3) for x in r1['ms']]} at batch 8, against one "
-          f"process at batch 16 {[round(x, 3) for x in one_ms]}; two ranks "
-          f"on one card measure the all-reduce's overhead, not scaling "
-          f"{tag}", flush=True)
+          f"Adam", flush=True)
     check(collective, "all_reduce_mean_ over two processes is not the mean")
     check(half_loss <= MC_SAME_RTOL and half_gap <= MC_SAME_GRAD_RTOL,
           f"two ranks against their steps alone: losses {half_loss}, "
@@ -3220,7 +2543,7 @@ def gloo_two_ranks(one, halves, one_ms, dev, tag):
 
 
 def mesh_imitator_checks(cr, imi, assets, cfg, imit_h, src_img, thetas,
-                         req_thetas, tgt_imgs, fps_solo, dev, tag):
+                         req_thetas, tgt_imgs, dev):
     """Phase 15 (c): an Imitator whose mesh names the card twice. Returns
     {path: launch counts}."""
     import numpy as np
@@ -3237,33 +2560,26 @@ def mesh_imitator_checks(cr, imi, assets, cfg, imit_h, src_img, thetas,
     torch.cuda.synchronize()
     out["mesh_personalize"] = read_counts(cr)
     reset_counts(cr)
-    req, preds = requests(lambda: dp.inference_by_smpls(req_thetas,
-                                                        batch=16))
+    preds = dp.inference_by_smpls(req_thetas, batch=16)
     out["mesh_inference_by_smpls"] = read_counts(cr)
     reset_counts(cr)
-    req_h, preds_h = requests(lambda: dp.inference(tgt_imgs, batch=16), 1)
+    preds_h = dp.inference(tgt_imgs, batch=16)
     out["mesh_inference"] = read_counts(cr)
     check(out["mesh_personalize"]["zbuffer_bucket_rows"] == 1 and
           out["mesh_personalize"]["zbuffer_bucket_flow"] == 0,
           f"mesh personalize launches {out['mesh_personalize']} (one "
           f"personalisation, copied to the replica)")
-    check(out["mesh_inference_by_smpls"]["zbuffer_bucket_flow"] == 3 * 8,
+    check(out["mesh_inference_by_smpls"]["zbuffer_bucket_flow"] == 8,
           f"mesh inference_by_smpls launches "
-          f"{out['mesh_inference_by_smpls']} (3 requests x 4 batches x 2 "
-          f"pieces)")
+          f"{out['mesh_inference_by_smpls']} (4 batches x 2 pieces)")
     check(out["mesh_inference"]["zbuffer_bucket_flow"] == 8,
           f"mesh inference launches {out['mesh_inference']}")
     for x in (preds, preds_h):
         check(tuple(x.shape) == (64, GEOM["s"], GEOM["s"], 3) and
               bool(torch.isfinite(x).all()), "mesh preds")
-    fps = 64 / sorted(req)[1]
     print(f"multi-card (c), an Imitator on a mesh naming the card twice "
           f"(bf16, 256^2, batch 16 in two pieces of 8): inference_by_smpls "
-          f"requests {[round(x, 4) for x in req]} s for 64 frames, median "
-          f"{fps:.1f} frames/s against {fps_solo:.1f} on one device "
-          f"(phase 4); inference (HMR) {req_h[0]:.4f} s; launches "
-          f"{out}; two replicas on one card measure the split's overhead, "
-          f"not scaling {tag}", flush=True)
+          f"and inference (HMR) of 64 frames; launches {out}", flush=True)
 
     cfg32 = TestConfig(image_size=GEOM["s"], repeat_num=6,
                        compute_dtype="float32")
@@ -3290,13 +2606,13 @@ def mesh_imitator_checks(cr, imi, assets, cfg, imit_h, src_img, thetas,
     print(f"multi-card (c), float32 (TF32 off): the two-replica mesh at "
           f"batch 16 against one device at batch 8, 64 frames, max |dpred| "
           f"inference_by_smpls {gaps[0]:.3e}, inference {gaps[1]:.3e} "
-          f"(bound {PRED_TOL}) {tag}", flush=True)
+          f"(bound {PRED_TOL})", flush=True)
     check(max(gaps) <= PRED_TOL, f"mesh preds differ by {gaps}")
     return out
 
 
 def data_parallel_cli_checks(cr, cfg, src_img, thetas, req_thetas, native,
-                             dev, tag):
+                             dev):
     """Phase 15 (d): run_imitator --data_parallel in this process and
     serve's service with data_parallel=True, on a mesh of the visible
     cards. Returns {path: launch counts}."""
@@ -3317,14 +2633,11 @@ def data_parallel_cli_checks(cr, cfg, src_img, thetas, req_thetas, native,
             np.uint8)
         write_png(str(tmp / "src.png"), src_u8)
         reset_counts(cr)
-        t0 = time.perf_counter()
         preds = run_imitator.main([
             "--src_path", str(tmp / "src.png"), "--tgt_path",
             str(tmp / "tgt"), "--output_dir", str(tmp / "out"),
             "--checkpoints_dir", str(tmp / "ckpt"), "--image_size", str(s),
             "--batch", str(n), "--data_parallel", "--device", dev.type])
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
         out["run_imitator_dp"] = read_counts(cr)
         check(len(preds) == n and len(list((tmp / "out").glob("pred_*")))
               == n, "run_imitator --data_parallel preds")
@@ -3350,16 +2663,14 @@ def data_parallel_cli_checks(cr, cfg, src_img, thetas, req_thetas, native,
           f"launches {out['serve_imitate_dp']}")
     print(f"multi-card (d), mesh of the {torch.cuda.device_count()} visible "
           f"card(s): run_imitator --data_parallel in-process on {n} JPEG "
-          f"frames {cli_s:.2f} s of wall time (first call: nets, HMR, "
-          f"files), launches {out['run_imitator_dp']}; serve with "
+          f"frames, launches {out['run_imitator_dp']}; serve with "
           f"data_parallel=True: 64 theta -> 64 JPEGs, launches "
-          f"{out['serve_imitate_dp']} {tag}", flush=True)
+          f"{out['serve_imitate_dp']}", flush=True)
     return out
 
 
 def multi_card_phase(cr, imi, assets, cfg, imit_h, src_img, thetas,
-                     req_thetas, tgt_imgs, fps_solo, dev, tag,
-                     backend=None):
+                     req_thetas, tgt_imgs, dev, backend=None):
     """Phase 15 (module docstring); returns {path: launch counts}.
     ``backend`` names (a)'s backend when it is not the card's NCCL."""
     import torch
@@ -3370,12 +2681,11 @@ def multi_card_phase(cr, imi, assets, cfg, imit_h, src_img, thetas,
              torch.backends.cudnn.deterministic)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    parts = [time.perf_counter()]
     try:
         tr = mc_trainer(tt, assets, dev)
         batch = stage_batch(train_batch(GEOM["s"], MC_BATCH, MC_SEED), dev)
         reset_counts(cr)
-        m_one, g_one, one_ms = nccl_world_one(tt, tr, batch, backend, tag)
+        m_one, g_one = nccl_world_one(tt, tr, batch, backend)
         by_path = {"train_group_of_one": read_counts(cr)}
         check(by_path["train_group_of_one"]["zbuffer_bucket_rows"] == 3 and
               by_path["train_group_of_one"]["zbuffer_bucket_flow"] == 3,
@@ -3383,15 +2693,13 @@ def multi_card_phase(cr, imi, assets, cfg, imit_h, src_img, thetas,
         half = MC_BATCH // 2
         halves = []
         for r in range(2):
-            m, g, _, _ = mc_step(tt, tr, {k: v[r * half:(r + 1) * half]
+            m, g, _ = mc_step(tt, tr, {k: v[r * half:(r + 1) * half]
                                           for k, v in batch.items()})
             halves.append((m, {k: v.cpu() for k, v in g.items()}))
         del tr, batch
         torch.cuda.empty_cache()
-        parts.append(time.perf_counter())
-        by_path["train_two_ranks"] = gloo_two_ranks(
-            (m_one, g_one), halves, one_ms, dev, tag)
-        parts.append(time.perf_counter())
+        by_path["train_two_ranks"] = gloo_two_ranks((m_one, g_one), halves,
+                                                    dev)
         torch.backends.cudnn.deterministic = flags[1]
         check(by_path["train_two_ranks"]["zbuffer_bucket_rows"] == 2 and
               by_path["train_two_ranks"]["zbuffer_bucket_flow"] == 2,
@@ -3399,17 +2707,12 @@ def multi_card_phase(cr, imi, assets, cfg, imit_h, src_img, thetas,
               f"each)")
         by_path.update(mesh_imitator_checks(
             cr, imi, assets, cfg, imit_h, src_img, thetas, req_thetas,
-            tgt_imgs, fps_solo, dev, tag))
+            tgt_imgs, dev))
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cudnn.deterministic) = flags
-    parts.append(time.perf_counter())
     by_path.update(data_parallel_cli_checks(cr, cfg, src_img, thetas,
-                                            req_thetas, native, dev, tag))
-    parts.append(time.perf_counter())
-    print("multi-card: seconds of wall time of (a), (b), (c), (d) "
-          + ", ".join(f"{b - a:.1f}" for a, b in zip(parts, parts[1:])),
-          flush=True)
+                                            req_thetas, native, dev))
     return by_path
 
 
@@ -3565,7 +2868,7 @@ def tool_launches(label, got, rows, flow, tiles=0):
     return got
 
 
-def prior_poses_checks(inp, native, got_pkl, tag):
+def prior_poses_checks(inp, native, got_pkl):
     """make_prior_poses' θs from the card against the same HMR on the CPU
     (TF32 off in both, HMR's own full_fp32): within FEAT_RTOL of the
     largest |θ|."""
@@ -3577,7 +2880,6 @@ def prior_poses_checks(inp, native, got_pkl, tag):
     with open(got_pkl, "rb") as f:
         d = pickle.load(f)
     th_g = np.concatenate([d["cams"], d["pose"], d["shape"]], 1)
-    t0 = time.perf_counter()
     with card_decoder_for_cpu(native):
         imgs = np.stack([cv_utils.resize_img_hwc(cv_utils.read_img(p, "cpu"),
                                                  224)
@@ -3585,8 +2887,8 @@ def prior_poses_checks(inp, native, got_pkl, tag):
     th_c = mpp.regress(mpp.load_hmr(inp["hmr"], "cpu"), imgs, "cpu")
     gap = float(np.abs(th_g - th_c).max() / np.abs(th_c).max())
     print(f"make_prior_poses on the card: {th_g.shape[0]} θs, against the "
-          f"CPU {gap:.3e} of the largest |θ| (bound {FEAT_RTOL}; CPU "
-          f"{time.perf_counter() - t0:.1f} s) {tag}", flush=True)
+          f"CPU {gap:.3e} of the largest |θ| (bound {FEAT_RTOL})",
+          flush=True)
     check(th_g.shape == (TOOL_FRAMES, 85) and np.isfinite(th_g).all(),
           f"prior poses {th_g.shape}")
     check(gap <= FEAT_RTOL, f"make_prior_poses card vs CPU {gap}")
@@ -3595,7 +2897,7 @@ def prior_poses_checks(inp, native, got_pkl, tag):
 VISUAL_CPU_FRAMES = 2      # visual_iper's frames rendered on the CPU too
 
 
-def visual_checks(cr, inp, out_dir, dev, tag):
+def visual_checks(cr, inp, out_dir, dev):
     """visual_iper's renders: on the card's own geometry the rows kernel's
     fim equals its plain twin's (on the card) and the tool's triptychs
     equal the card's in-process ones, every value; on the CPU's geometry
@@ -3610,7 +2912,6 @@ def visual_checks(cr, inp, out_dir, dev, tag):
     from impersonator_tpu_torch.tools import image_paths
     from impersonator_tpu_torch.tools import visual_iper as vi
     from impersonator_tpu_torch.utils import cv_utils
-    t0 = time.perf_counter()
     assets = load_smpl_assets(inp["smpl"][1], inp["smpl"][3])
     s, th = GEOM["s"], torch.from_numpy(inp["thetas"])
     parents = assets.parents
@@ -3649,8 +2950,8 @@ def visual_checks(cr, inp, out_dir, dev, tag):
     print(f"visual_iper: {len(paths)} triptychs of the "
           f"{assets.faces.shape[0]}-face bench body equal to the card's "
           f"renders, fim = plain twin; on the CPU's geometry of {n} frames "
-          f"fim card = CPU, render gap {rgb_gap:.3e} (bound {TEX_TOL}); "
-          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+          f"fim card = CPU, render gap {rgb_gap:.3e} (bound {TEX_TOL})",
+          flush=True)
     check(torch.equal(fim.cpu(), fim_c), "visual_iper fim card vs CPU")
     check(rgb_gap <= TEX_TOL, f"visual_iper render card vs CPU {rgb_gap}")
 
@@ -3658,22 +2959,19 @@ def visual_checks(cr, inp, out_dir, dev, tag):
 def cpu_harness(inp, native, out):
     """parity_harness in float32 on the CPU on the first TOOL_CPU_FRAMES
     frames (the card's decoder reading the PNGs: card_decoder_for_cpu)
-    into out['json'], its seconds into out['s'], a failure into
-    out['error']; phase 16 runs it on a thread beside the tool
-    subprocesses."""
+    into out['json'], a failure into out['error']; phase 16 runs it on a
+    thread beside the tool subprocesses."""
     from impersonator_tpu_torch.tools import parity_harness as ph
     try:
-        t0 = time.perf_counter()
         with card_decoder_for_cpu(native):
             out["json"] = ph.harness(ph.parse_args(
                 harness_args(inp, inp["frames_first"])
                 + ["--compute_dtype", "float32", "--device", "cpu"]))
-        out["s"] = time.perf_counter() - t0
     except BaseException as e:    # noqa: BLE001 (re-raised by the phase)
         out["error"] = e
 
 
-def harness_checks(res_c, cpu_s, res32, res16, tag):
+def harness_checks(res_c, res32, res16):
     """parity_harness: the card's float32 JSON on its first
     TOOL_CPU_FRAMES frames against the CPU's within EVAL_BOUNDS, each
     frame; the bf16 and float32 runs' JSON finite over every frame."""
@@ -3694,8 +2992,7 @@ def harness_checks(res_c, cpu_s, res32, res16, tag):
           f"{res16['aggregate']}; float32 card vs CPU on the first "
           f"{TOOL_CPU_FRAMES}, largest gaps "
           f"{ {k: f'{v:.3e}' for k, v in gaps.items()} } (bounds "
-          f"{ {k: EVAL_BOUNDS[k] for k in gaps} }; the CPU run {cpu_s:.1f} s "
-          f"beside the subprocesses) {tag}", flush=True)
+          f"{ {k: EVAL_BOUNDS[k] for k in gaps} })", flush=True)
     for k, v in gaps.items():
         check(v <= EVAL_BOUNDS[k], f"parity_harness {k} card vs CPU {v}")
 
@@ -3708,7 +3005,7 @@ def harness_args(inp, frames):
             "--image_size", str(GEOM["s"]), *inp["smpl"]]
 
 
-def artifact_first_steps(dev, tag):
+def artifact_first_steps(dev):
     """The two artifacts' recipes, first step card vs CPU (128², batch 2,
     float32, TF32 off), on the CPU's raster products:
     posttune_artifact's structured source and prior poses through one
@@ -3727,7 +3024,6 @@ def artifact_first_steps(dev, tag):
     from impersonator_tpu_torch.tools import posttune_artifact as pa
     from impersonator_tpu_torch.tools import trainconv_artifact as ta
     from impersonator_tpu_torch.utils.precision import full_fp32
-    t0 = time.perf_counter()
     with full_fp32():
         im_c, _ = pa.build(128, 0, torch.device("cpu"), "float32")
         im_g = Imitator(im_c.cfg, assets=im_c.assets, device=dev,
@@ -3768,14 +3064,13 @@ def artifact_first_steps(dev, tag):
           f"blocks, 2-layer D, 128², batch 2, float32, TF32 off, the CPU's "
           f"raster): post-tune losses "
           f"{gaps[0]:.3e}, train losses {gaps[1]:.3e} relative (bound "
-          f"{TUNE_LOSS_RTOL}; {time.perf_counter() - t0:.1f} s) {tag}",
-          flush=True)
+          f"{TUNE_LOSS_RTOL})", flush=True)
     for gap, what in zip(gaps, ("post-tune", "train")):
         check(gap <= TUNE_LOSS_RTOL, f"{what} artifact step card vs CPU "
                                      f"{gap}")
 
 
-def tools_phase(cr, native, assets, dev, tag):
+def tools_phase(cr, native, assets, dev):
     """Phase 16 (module docstring); returns {path: launch counts}."""
     import math
     import pickle
@@ -3788,14 +3083,10 @@ def tools_phase(cr, native, assets, dev, tag):
                                                          read_flax_msgpack)
     from impersonator_tpu_torch.utils.precision import full_fp32
     from impersonator_tpu_torch.utils.video import frames_to_mp4, have_ffmpeg
-    t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp_s:
         tmp = Path(tmp_s)
-        t0 = time.perf_counter()
         inp = tool_inputs(tmp, assets)
-        print(f"tool inputs written ({time.perf_counter() - t0:.1f} s)",
-              flush=True)
         root = Path(__file__).resolve().parent
         t = "impersonator_tpu_torch.tools."
         cuda = ["--device", dev.type]
@@ -3832,7 +3123,6 @@ def tools_phase(cr, native, assets, dev, tag):
             jobs["prepare_iper"] = [t + "prepare_iper", "--video_dir",
                                     str(tmp / "videos"), "--out_dir",
                                     str(tmp / "iper")]
-        t0 = time.perf_counter()
         cpu_run = {}
         cpu_thread = threading.Thread(target=cpu_harness, daemon=True,
                                       args=(inp, native, cpu_run))
@@ -3856,19 +3146,17 @@ def tools_phase(cr, native, assets, dev, tag):
             try:
                 # while the card runs the rest, the checks whose inputs
                 # are there
-                artifact_first_steps(dev, tag)
-                prior_poses_checks(inp, native, str(tmp / "priors.pkl"),
-                                   tag)
+                artifact_first_steps(dev)
+                prior_poses_checks(inp, native, str(tmp / "priors.pkl"))
                 res.update(finish_modules({"visual_iper":
                                            procs.pop("visual_iper")}))
-                visual_checks(cr, inp, str(tmp / "qa"), dev, tag)
+                visual_checks(cr, inp, str(tmp / "qa"), dev)
                 res.update(finish_modules(procs))
             finally:
                 for proc in everything.values():
                     if proc.poll() is None:
                         proc.kill()
                         proc.wait()
-            tools_s = time.perf_counter() - t0
             cpu_thread.join()
         if "error" in cpu_run:
             raise cpu_run["error"]
@@ -3905,9 +3193,8 @@ def tools_phase(cr, native, assets, dev, tag):
         for k in ("parity_harness", "parity_harness_fp32"):
             text = res[k][0][:res[k][0].index("LAUNCHES ")]
             harness[k] = json.loads(text[text.index("{"):])
-        harness_checks(cpu_run["json"], cpu_run["s"],
-                       harness["parity_harness_fp32"],
-                       harness["parity_harness"], tag)
+        harness_checks(cpu_run["json"], harness["parity_harness_fp32"],
+                       harness["parity_harness"])
         pt_json = json.loads((tmp / "pt.json").read_text())
         tc_json = json.loads((tmp / "tc.json").read_text())
         cyc = pt_json["cycle_loss_per_epoch"]
@@ -3922,8 +3209,8 @@ def tools_phase(cr, native, assets, dev, tag):
         print(f"posttune_artifact on the card ({' '.join(TOOL_POSTTUNE)}): "
               f"cycle loss per epoch {cyc}, after {pt_json['after']}; "
               f"trainconv_artifact ({' '.join(TOOL_TRAINCONV)}): "
-              f"{[{k: r[k] for k in ('g_total', 'd_loss', 'eval_ssim')} for r in rows]} "
-              f"{tag}", flush=True)
+              f"{[{k: r[k] for k in ('g_total', 'd_loss', 'eval_ssim')} for r in rows]}",
+              flush=True)
 
         if ffmpeg:
             iper = tmp / "iper" / "001" / "1" / "1"
@@ -3935,23 +3222,19 @@ def tools_phase(cr, native, assets, dev, tag):
             print("prepare_iper: NOT RUN, this host has no ffmpeg "
                   "(utils.video.have_ffmpeg() is false)", flush=True)
 
-    print(f"tools phase: {time.perf_counter() - t_phase:.1f} s of wall time "
-          f"(the tools as {len(res)} subprocesses, make_prior_poses' pickle "
-          f"then into run_imitator --post_tune --prior_poses, "
-          f"{tools_s:.1f} s with the checks made meanwhile; the CPU "
-          f"parity harness beside them {cpu_run['s']:.1f} s); "
-          f"launches { {k: [v['zbuffer_bucket_rows'], v['zbuffer_bucket_flow']] for k, v in by_path.items()} } "
-          f"(rows, flow) {tag}", flush=True)
+    print(f"tools phase: the tools as {len(res)} subprocesses, "
+          f"make_prior_poses' pickle then into run_imitator --post_tune "
+          f"--prior_poses; launches "
+          f"{ {k: [v['zbuffer_bucket_rows'], v['zbuffer_bucket_flow']] for k, v in by_path.items()} } "
+          f"(rows, flow)", flush=True)
     return by_path
 
 
 def main():
     import numpy as np
     import torch
-    t_start = time.perf_counter()
 
     # -- phase 1: the card -------------------------------------------------
-    lap("1")
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     from impersonator_tpu_torch.assets import bench_assets, synthetic_assets
     from impersonator_tpu_torch.config import TestConfig
@@ -3965,31 +3248,30 @@ def main():
 
     dev = torch.device("cuda")
     smi = gpu_line()
-    tag = f"[{smi}]"
     print(f"device: {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # -- phase 2: build ----------------------------------------------------
-    lap("2")
     from concurrent.futures import ThreadPoolExecutor
     from impersonator_tpu_torch.data import native
-    t0 = time.perf_counter()
+    from impersonator_tpu_torch.ops import cuda_warp
+    from impersonator_tpu_torch.utils import native_build
     with ThreadPoolExecutor(1) as pool:     # the codec builds meanwhile
         codec = pool.submit(native.load, dev)
-        log = cr.build()
-        build_s = time.perf_counter() - t0
+        log = native_build.build_kernels()
+        for source, table in (("zbuffer_bucket.cu", cr.BUCKET_SYMBOLS),
+                              ("zbuffer_tiles.cu", cr.TILES_SYMBOLS),
+                              ("warp_bilinear.cu", cuda_warp.SYMBOLS)):
+            native_build.kernel(source, table)
         codec_kind = codec.result().kind
-    codec_s = time.perf_counter() - t0
     for line in log.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             print("ptxas:", line.strip())
-    print(f"build: {build_s:.2f} s (nvcc + load); the {codec_kind} image "
-          f"codec (nvJPEG) built beside it, ready at {codec_s:.2f} s {tag}",
-          flush=True)
+    print(f"build: the kernels built and loaded; the {codec_kind} image "
+          f"codec (nvJPEG) built beside it", flush=True)
 
     # -- phase 3: kernels vs plain twins -----------------------------------
-    lap("3")
     assets = bench_assets()
     params = smpl_ops.SMPLParams.from_assets(assets, dev)
     renderer = SMPLRenderer.create(assets, dev, image_size=GEOM["s"])
@@ -4019,7 +3301,7 @@ def main():
     errs = {"zbuffer_bucket_rows": max(w_err, w_r, w_f, w_d),
             "zbuffer_bucket_flow": max(t_err, t_r, t_f, t_d)}
 
-    verts, fid, srcxy, starts, geo = body_in
+    verts, starts = body_in[0], body_in[3]
     masks, pos = cr.bucket_warp_masks_plain(verts, starts, GEOM["s"],
                                             GEOM["tile"], GEOM["span"])
     n_warps = (GEOM["tile"] // cr.WARP_W) * (GEOM["tile"] // cr.WARP_H)
@@ -4028,39 +3310,12 @@ def main():
     print(f"warp cull on the 16 bodies: keeps {kept} of "
           f"{int((pos >= 0).sum()) * n_warps} (warp, face) pairs, "
           f"{keep_share:.4f}", flush=True)
-    timing = {
-        "zbuffer_bucket_rows": (
-            kernel_ms(lambda: cr.zbuffer_bucket_rows(verts, fid, starts,
-                                                     *geo)),
-            median_ms(lambda: cr.zbuffer_bucket_rows_plain(
-                verts, fid, starts, *geo), 5)),
-        "zbuffer_bucket_flow": (
-            kernel_ms(lambda: cr.zbuffer_bucket_flow(
-                verts, fid, srcxy, starts, *geo)),
-            median_ms(lambda: cr.zbuffer_bucket_flow_plain(
-                verts, fid, srcxy, starts, *geo), 5)),
-    }
-    # bounds: the operations these inputs need (OPS_TEST per pair of the
-    # tiles' candidate ranges whose pixel is in the face's bbox, OPS_HIT
-    # per pair inside its face; and the all-pairs count), each input read
-    # once, each output written once
-    ops = bucket_ops(cr, rast, verts, starts, GEOM["s"], GEOM["tile"],
-                     GEOM["span"])
-    n_px = verts.shape[0] * GEOM["s"] ** 2
-    bounds = {
-        "zbuffer_bucket_rows": bounds_of(ops, nbytes(verts, fid, starts)
-                                         + 16 * n_px),
-        "zbuffer_bucket_flow": bounds_of(ops, nbytes(verts, fid, srcxy,
-                                                     starts) + 12 * n_px),
-    }
 
     # -- phase 3b: zbuffer_tiles vs its plain twin -------------------------
-    lap("3b")
     check(renderer.tile_params() == TILES,
           f"renderer tile_params {renderer.tile_params()}")
     tile8, cap, tspan = TILES
-    (fim_tk, _), err_tb, cov_tb, tiles_in = tiles_vs_plain(cr, rast, fv,
-                                                           cap)
+    (fim_tk, _), err_tb, cov_tb, _ = tiles_vs_plain(cr, rast, fv, cap)
     n_diff = int((fim_tk != fim_rows).sum())
     check(n_diff == 0, f"tiles fim differs from rows fim at {n_diff} px")
     stats = {k: v.tolist() for k, v in renderer.tile_stats(fv).items()}
@@ -4093,22 +3348,8 @@ def main():
           f"240 coplanar faces at one depth in random slot order): fim "
           f"equal, max |dw| {err_tt}, coverage {cov_tt:.4f}", flush=True)
     errs["zbuffer_tiles"] = max(err_tb, err_tr, err_tz, err_tf, err_tt)
-    for name, ((ms, dev_ms, dev_by, held), plain_ms) in timing.items():
-        print(f"{name}: kernel {ms:.4f} ms a lone call, {dev_ms:.4f} ms of "
-              f"device time per launch ({dev_by}; {held:.4f} ms from CUDA events on a "
-              f"held stream), plain {plain_ms:.4f} ms, bound {bounds[name][0]:.4f} ms "
-              f"({bounds[name][1]}), all-pairs bound {bounds[name][2]:.4f} "
-              f"ms, batch 16 at 256^2 {tag}", flush=True)
-    (ms_b, dev_b, *_), plain_b, bound_b, _ = time_tiles(cr, rast, *tiles_in)
-    print(f"zbuffer_tiles on the 16 bodies ({assets.nf} faces, not its "
-          f"path): kernel {ms_b:.4f} ms a lone call, {dev_b:.4f} ms of "
-          f"device time per launch, "
-          f"plain {plain_b:.4f} ms, bound {bound_b[0]:.4f} ms ({bound_b[1]}),"
-          f" all-pairs bound {bound_b[2]:.4f} ms, bound with the whole face "
-          f"table charged {bound_b[3]:.4f} ms, batch 16 at 256^2 {tag}", flush=True)
 
     # -- phase 3c: the renderer's tiled route (nf > 60,000) ----------------
-    lap("3c")
     big = synthetic_assets(rings=24, segments=60)
     r_big = SMPLRenderer.create(big, dev, image_size=GEOM["s"])
     check(r_big.raster_route() == "tiled",
@@ -4124,7 +3365,7 @@ def main():
     check(tiled_launches["zbuffer_tiles"] >= 1,
           f"tiled route launches {tiled_launches}")
     tb, tcap, tsp = r_big.tile_params()
-    (fim_bk, wim_bk), err_big, cov_big, big_in = tiles_vs_plain(
+    (fim_bk, wim_bk), err_big, cov_big, _ = tiles_vs_plain(
         cr, rast, f2v_big, tcap, tb, tsp)
     check(torch.equal(fim_big, fim_bk) and torch.equal(wim_big, wim_bk),
           "tiled route differs from zbuffer_tiles on its slots")
@@ -4132,8 +3373,6 @@ def main():
         dev, tb, 16 + tcap, 16), tb)
     check(cov_bt > 0.05, f"tie scene coverage {cov_bt}")
     errs["zbuffer_tiles"] = max(errs["zbuffer_tiles"], err_big, err_bt)
-    ms_t, plain_t, bound_t, cands = time_tiles(cr, rast, *big_in)
-    timing["zbuffer_tiles"], bounds["zbuffer_tiles"] = (ms_t, plain_t), bound_t
     check(cov_big > 0.02, f"63k-face bodies cover {cov_big}")
     st_big = {k: v.tolist() for k, v in r_big.tile_stats(f2v_big).items()}
     print(f"tiled route: {big.nf} faces, 16 poses, tile_params "
@@ -4142,40 +3381,13 @@ def main():
           f"tile_stats max_tile_occupancy {st_big['max_tile_occupancy']}, "
           f"dropped_pairs {st_big['dropped_pairs']}; tie scene (16 items, "
           f"{16 + tcap} slots): fim equal, max |dw| {err_bt}", flush=True)
-    print(f"zbuffer_tiles on its path ({big.nf} faces): kernel "
-          f"{ms_t[0]:.4f} ms a lone call, {ms_t[1]:.4f} ms of device time "
-          f"per launch ({ms_t[2]}; {ms_t[3]:.4f} ms from CUDA events on a held "
-          f"stream), plain "
-          f"{plain_t:.4f} ms, bound {bound_t[0]:.4f} ms ({bound_t[1]}), "
-          f"all-pairs bound {bound_t[2]:.4f} ms, bound with the whole face "
-          f"table charged {bound_t[3]:.4f} ms, batch 16 at 256^2 {tag}", flush=True)
-    print(f"zbuffer_tiles' live (tile, slot) pairs on its path: {cands[0]}; "
-          f"with a pixel of the tile in the face's pixel bbox {cands[1]} "
-          f"({cands[1] / cands[0]:.4f}); passing the inside test at a pixel "
-          f"of the tile {cands[2]} ({cands[2] / cands[0]:.4f}): an exact "
-          f"tile cull keeps at least the latter", flush=True)
-    split = route_split(lambda: rast.rasterize_fim_wim_tiled(
-        f2v_big, GEOM["s"], rast.DEFAULT_NEAR, rast.DEFAULT_FAR, tb, tcap,
-        tsp))
-    if split is None:
-        print("tiled route split: the profiler saw no device activity; not "
-              "measured")
-    else:
-        print(f"tiled route, device time of one rasterize_fim_wim_tiled "
-              f"(mean of 10): slot build (_tiled_candidates: sort, "
-              f"searchsorted, gathers) {split[0]:.4f} ms, zbuffer_tiles "
-              f"{split[1]:.4f} ms, the kernel "
-              f"{split[1] / (split[0] + split[1]):.3f} of the route, batch "
-              f"16 at 256^2 {tag}", flush=True)
 
     # -- phase 3d: the warp kernel vs its plain twin ------------------------
-    lap("3d")
     # the 16 bodies' flow T, as phase 3's kernel computed it
     body_flow = cr.zbuffer_bucket_flow(*body_in[:4], *body_in[4])[1]
-    warp_rows, warp_total, warp_err = warp_kernel_phase(dev, body_flow, tag)
+    warp_err = warp_kernel_phase(dev, body_flow)
 
     # -- phase 4: the slice at full width ----------------------------------
-    lap("4")
     cfg = TestConfig(image_size=GEOM["s"], repeat_num=6)
     master = imi.build_nets(cfg, assets)
     master_sd = {k: v.clone() for k, v in
@@ -4186,54 +3398,45 @@ def main():
     req_thetas = np.tile(thetas[0], (64, 1))
     req_thetas[:, 3:75] += rng.normal(0, 0.05, (64, 72)).astype(np.float32)
     reset_counts(cr)
-    (pers_s,), src_info = requests(lambda: imit.personalize(
-        src_img, src_smpl=thetas[0]), 1)
+    src_info = imit.personalize(src_img, src_smpl=thetas[0])
     rows_after_pers = cr.zbuffer_bucket_rows.launches
     warps_after_pers = read_counts(cr)["warp_bilinear"]
-    req_s, preds = requests(lambda: imit.inference_by_smpls(req_thetas,
-                                                            batch=16))
+    preds = imit.inference_by_smpls(req_thetas, batch=16)
     launches = read_counts(cr)
     check(rows_after_pers >= 1, "personalize launched no rows kernel")
-    check(launches["zbuffer_bucket_flow"] == 3 * 4,
-          f"flow kernel launches {launches['zbuffer_bucket_flow']} != 12")
+    check(launches["zbuffer_bucket_flow"] == 4,
+          f"flow kernel launches {launches['zbuffer_bucket_flow']} != 4")
     # 5 warps a batch of 16: the source image's and the generator's 4
-    check(launches["warp_bilinear"] - warps_after_pers == 3 * 4 * 5,
+    check(launches["warp_bilinear"] - warps_after_pers == 4 * 5,
           f"warp launches {launches} ({warps_after_pers} in personalize), "
-          f"expected 60 in 12 batches")
+          f"expected 20 in 4 batches")
     check(tuple(preds.shape) == (64, GEOM["s"], GEOM["s"], 3),
           f"preds shape {tuple(preds.shape)}")
     check(bool(torch.isfinite(preds).all()), "non-finite preds")
     src_cov = float((src_info["fim"] >= 0).float().mean())
     check(src_cov > 0.02, f"source body covers {src_cov}")
-    fps = 64 / sorted(req_s)[1]
-    print(f"slice: personalize {pers_s:.3f} s (first call), requests "
-          f"{[round(x, 4) for x in req_s]} s for 64 frames, median "
-          f"{fps:.1f} frames/s at batch 16, bf16, 256^2 {tag}")
     master_same = all(
         v.dtype == torch.float32 and torch.equal(v.cpu(), master_sd[k])
         for k, v in master.generator.state_dict().items())
     check(master_same, "the bf16 Imitator changed its float32 master")
     check(imit.compute_nets.generator.tsf_model.img_reg[0].weight.dtype
           == torch.bfloat16, "the compute copy is not bf16")
-    print(f"slice: launches {launches}, source coverage {src_cov:.4f}; the "
+    print(f"slice: personalize and a 64-frame request at batch 16, bf16, "
+          f"256^2; launches {launches}, source coverage {src_cov:.4f}; the "
           f"float32 master weights given to the bf16 Imitator are bit-"
           f"identical after the phase ({len(master_sd)} tensors)",
           flush=True)
 
     # -- phase 4b: the image-driven leg at full width -----------------------
-    lap("4b")
     imit_h = imi.Imitator(cfg, assets=assets, device=dev)   # HMR included
     tgt_imgs = torch.from_numpy(target_images(64, 1)).to(dev)
-    imit_h.regress_smpl(tgt_imgs[:16])       # cuDNN's first-use set-up
-    torch.cuda.synchronize()
     reset_counts(cr)
-    (pers_h_s,), src_h = requests(lambda: imit_h.personalize(src_img),
-                                  1)                  # θ from HMR
+    src_h = imit_h.personalize(src_img)                # θ from HMR
     rows_after_pers_h = cr.zbuffer_bucket_rows.launches
-    req_h, preds_h = requests(lambda: imit_h.inference(tgt_imgs, batch=16))
+    preds_h = imit_h.inference(tgt_imgs, batch=16)
     launches_h = read_counts(cr)
     check(rows_after_pers_h >= 1, "personalize(src_img) launched no rows")
-    check(launches_h["zbuffer_bucket_flow"] == 3 * 4,
+    check(launches_h["zbuffer_bucket_flow"] == 4,
           f"full leg flow launches {launches_h['zbuffer_bucket_flow']}")
     check(tuple(preds_h.shape) == (64, GEOM["s"], GEOM["s"], 3),
           f"full leg preds shape {tuple(preds_h.shape)}")
@@ -4242,19 +3445,14 @@ def main():
     check(src_cov_h > 0.02, f"HMR source body covers {src_cov_h}")
     mean_theta = torch.from_numpy(assets.mean_theta).to(dev)
     dev_theta = float((src_h["theta"] - mean_theta).abs().max())
-    hmr_ms = median_ms(lambda: imit_h.regress_smpl(tgt_imgs[:16]), 20)
-    fps_h = 64 / sorted(req_h)[1]
-    print(f"full leg: personalize(src_img) {pers_h_s:.3f} s, requests "
-          f"{[round(x, 4) for x in req_h]} s for 64 frames, median "
-          f"{fps_h:.1f} frames/s at batch 16 (HMR fp32 + generator bf16), "
-          f"256^2; HMR {hmr_ms:.4f} ms per batch of 16 at 224^2 {tag}")
-    print(f"full leg: launches {launches_h}, source coverage "
+    print(f"full leg: personalize(src_img) and a 64-frame request at batch "
+          f"16 (HMR fp32 + generator bf16), 256^2; launches {launches_h}, "
+          f"source coverage "
           f"{src_cov_h:.4f}, source max |theta - mean_theta| {dev_theta:.4f}",
           flush=True)
 
 
     # -- phase 7: appearance transfer at full width -------------------------
-    lap("7")
     from impersonator_tpu_torch.ops.projection import euler_to_matrix
     from impersonator_tpu_torch.tasks import swapper as swp
     from impersonator_tpu_torch.tasks import viewer as vwr
@@ -4262,8 +3460,7 @@ def main():
     tgt_img = np.ascontiguousarray(-src_img[:, ::-1])
     swapper = swp.Swapper(cfg, assets=assets, device=dev)
     reset_counts(cr)
-    (setup_s,), _ = requests(lambda: swapper.swap_setup(
-        src_img, tgt_img, thetas[0], thetas[1]), 1)
+    swapper.swap_setup(src_img, tgt_img, thetas[0], thetas[1])
     launches_setup = read_counts(cr)
     check(launches_setup["zbuffer_bucket_rows"] == 2,
           f"swap_setup launches {launches_setup}")
@@ -4280,40 +3477,33 @@ def main():
     differ = float((diff > 0).float().mean())
     check(differ >= SWAP_DIFFER, f"body and all swaps differ on {differ} "
           f"of the kept part's {n_kept} px")
-    swap_ms = median_ms(lambda: swapper.swap(target_part="body"), 20)
     # the appearance-transfer chain: personalise the swapped image, then
     # drive it through a motion
     comp_state = swapper.personalize(swaps["body"][0].cpu().numpy(),
                                      thetas[0])
     reset_counts(cr)
-    req_w, preds_w = requests(lambda: swapper.imitate_by_smpls(
-        comp_state, req_thetas, batch=16))
+    preds_w = swapper.imitate_by_smpls(comp_state, req_thetas, batch=16)
     launches_swap = read_counts(cr)
-    check(launches_swap["zbuffer_bucket_flow"] == 3 * 4,
+    check(launches_swap["zbuffer_bucket_flow"] == 4,
           f"swapped imitation flow launches {launches_swap}")
     check(tuple(preds_w.shape) == (64, s, s, 3) and
           bool(torch.isfinite(preds_w).all()), "swapped imitation preds")
-    print(f"swap: swap_setup {setup_s:.3f} s (2 personalisations), launches "
-          f"{launches_setup}; swap('body') {swap_ms:.4f} ms (median of 20, "
-          f"CUDA events); the kept head covers {n_kept} px, of which "
+    print(f"swap: swap_setup (2 personalisations), launches "
+          f"{launches_setup}; the kept head covers {n_kept} px, of which "
           f"{differ:.4f} differ between 'body' and 'all' (max "
-          f"{float(diff.max()):.4f}); swapped imitation requests "
-          f"{[round(x, 4) for x in req_w]} s for 64 frames, median "
-          f"{64 / sorted(req_w)[1]:.1f} frames/s at batch 16, launches "
-          f"{launches_swap}, bf16, 256^2 {tag}", flush=True)
+          f"{float(diff.max()):.4f}); swapped imitation of 64 frames at "
+          f"batch 16, launches {launches_swap}, bf16, 256^2", flush=True)
 
     # -- phase 8: novel view at full width ----------------------------------
-    lap("8")
     viewer = vwr.Viewer(cfg, assets=assets, device=dev)
     reset_counts(cr)
-    (pers_v_s,), _ = requests(lambda: viewer.personalize(src_img,
-                                                         thetas[0]), 1)
+    viewer.personalize(src_img, thetas[0])
     launches_pv = read_counts(cr)
     check(launches_pv["zbuffer_bucket_rows"] == 1,
           f"viewer personalize launches {launches_pv}")
     yaws = [22.5 * i for i in range(16)]
     reset_counts(cr)
-    (sweep_s,), sweep = requests(lambda: viewer.view_sweep(yaws), 1)
+    sweep = viewer.view_sweep(yaws)
     launches_sweep = read_counts(cr)
     check(launches_sweep["zbuffer_bucket_flow"] == 1,
           f"view_sweep launches {launches_sweep}")
@@ -4325,23 +3515,18 @@ def main():
     view_thetas = np.tile(thetas[0], (64, 1))
     view_thetas[:, 3:6] = vrng.normal(0, 0.8, (64, 3)).astype(np.float32)
     reset_counts(cr)
-    req_v, preds_v = requests(lambda: viewer.view_by_smpls(view_thetas,
-                                                           batch=16))
+    preds_v = viewer.view_by_smpls(view_thetas, batch=16)
     launches_view = read_counts(cr)
-    check(launches_view["zbuffer_bucket_flow"] == 3 * 4,
+    check(launches_view["zbuffer_bucket_flow"] == 4,
           f"view_by_smpls launches {launches_view}")
     check(tuple(preds_v.shape) == (64, s, s, 3) and
           bool(torch.isfinite(preds_v).all()), "view_by_smpls preds")
-    print(f"view: personalize {pers_v_s:.3f} s, launches {launches_pv}; "
-          f"view_sweep of 16 yaws {sweep_s:.4f} s, launches "
-          f"{launches_sweep}, coverage at yaw 0 / 90 {covs[0]:.4f} / "
-          f"{covs[1]:.4f}; view_by_smpls requests "
-          f"{[round(x, 4) for x in req_v]} s for 64 views, median "
-          f"{64 / sorted(req_v)[1]:.1f} views/s at batch 16, launches "
-          f"{launches_view}, bf16, 256^2 {tag}", flush=True)
+    print(f"view: personalize, launches {launches_pv}; view_sweep of 16 "
+          f"yaws, launches {launches_sweep}, coverage at yaw 0 / 90 "
+          f"{covs[0]:.4f} / {covs[1]:.4f}; view_by_smpls of 64 views at "
+          f"batch 16, launches {launches_view}, bf16, 256^2", flush=True)
 
     # -- phase 8b: DeepFill background, front warp ---------------------------
-    lap("8b")
     cfg_bg = TestConfig(image_size=s, repeat_num=6, bg_model="deepfill",
                         front_warp=True)
     imit_bg = imi.Imitator(cfg_bg, assets=assets, device=dev)
@@ -4352,63 +3537,48 @@ def main():
     face_thetas = req_thetas.copy()
     face_thetas[:, 3:6] += face
     reset_counts(cr)
-    (pers_bg_s,), src_bg = requests(lambda: imit_bg.personalize(
-        src_img, src_smpl=th_face), 1)
-    (req_bg_s,), preds_bg = requests(lambda: imit_bg.inference_by_smpls(
-        face_thetas, batch=16), 1)
+    src_bg = imit_bg.personalize(src_img, src_smpl=th_face)
+    preds_bg = imit_bg.inference_by_smpls(face_thetas, batch=16)
     launches_bg = read_counts(cr)
     check(launches_bg["zbuffer_bucket_rows"] == 1 and
           launches_bg["zbuffer_bucket_flow"] == 4,
           f"DeepFill leg launches {launches_bg}")
     check(bool(torch.isfinite(src_bg["bg"]).all()), "non-finite background")
     check(bool(torch.isfinite(preds_bg).all()), "non-finite DeepFill preds")
-    print(f"DeepFill + front warp: personalize {pers_bg_s:.3f} s (first "
-          f"call, DeepFill fp32), background mean |x| "
-          f"{float(src_bg['bg'].abs().mean()):.4f}; one 64-frame request "
-          f"{req_bg_s:.4f} s, {64 / req_bg_s:.1f} frames/s at batch 16, "
-          f"launches {launches_bg}, 256^2 {tag}", flush=True)
+    print(f"DeepFill + front warp: personalize (DeepFill fp32), background "
+          f"mean |x| {float(src_bg['bg'].abs().mean()):.4f}; one 64-frame "
+          f"request at batch 16, launches {launches_bg}, 256^2", flush=True)
 
     # -- phase 10: test-time post-tune at full width ------------------------
-    lap("10")
     (pt_launches, pt_sw_launches) = post_tune_phase(
-        cr, imi, swapper, assets, cfg, src_img, thetas, req_thetas, dev,
-        tag)
+        cr, imi, swapper, assets, cfg, src_img, thetas, req_thetas, dev)
 
     # -- phase 11: the adversarial trainer at full width --------------------
-    lap("11")
-    train_launches, w_tr, t_tr = train_phase(cr, smpl_ops, assets, dev, tag)
+    train_launches, w_tr, t_tr = train_phase(cr, smpl_ops, assets, dev)
     errs["zbuffer_bucket_rows"] = max(errs["zbuffer_bucket_rows"], w_tr)
     errs["zbuffer_bucket_flow"] = max(errs["zbuffer_bucket_flow"], t_tr)
 
     # -- phase 12: host and device IO, serve and the CLIs -------------------
-    lap("12")
     io_launches = host_io_phase(cr, imi, imit_h, assets, cfg, src_img,
-                                thetas, req_thetas, dev, tag)
+                                thetas, req_thetas, dev)
 
     # -- phase 13: the remaining trainers at full width ---------------------
-    lap("13")
-    trainer_launches = remaining_trainers_phase(cr, smpl_ops, assets, dev,
-                                                tag)
+    trainer_launches = remaining_trainers_phase(cr, smpl_ops, assets, dev)
 
     # -- phase 14: the evaluation suite ---------------------------------------
-    lap("14")
-    eval_launches = evaluation_phase(cr, native, dev, tag)
+    eval_launches = evaluation_phase(cr, native, dev)
 
     # -- phase 15: the multi-card code paths on one card --------------------
-    lap("15")
     print(f"process state before phase 15: {process_state()}", flush=True)
     mc_launches = multi_card_phase(cr, imi, assets, cfg, imit_h, src_img,
-                                   thetas, req_thetas, tgt_imgs, fps, dev,
-                                   tag)
+                                   thetas, req_thetas, tgt_imgs, dev)
     print(f"process state after phase 15: {process_state()}", flush=True)
 
     # -- phase 16: the repository's tools on the port -----------------------
-    lap("16")
-    tool_launches_by_path = tools_phase(cr, native, assets, dev, tag)
+    tool_launches_by_path = tools_phase(cr, native, assets, dev)
     print(f"process state after phase 16: {process_state()}", flush=True)
 
     # -- phase 9: fp32 (TF32 off) card vs CPU: swap, view, DeepFill ----------
-    lap("9")
     torch.backends.cudnn.allow_tf32 = False
     cpu = torch.device("cpu")
     cfg32 = TestConfig(image_size=s, repeat_num=6, compute_dtype="float32")
@@ -4461,7 +3631,6 @@ def main():
           f"{float(x_c.abs().mean()):.4f})", flush=True)
 
     # -- phase 5: fp32 card vs CPU -----------------------------------------
-    lap("5")
     print(f"process state at phase 5: {process_state()}", flush=True)
     ims, sts, preds = [], [], []
     for d in (dev, cpu):
@@ -4520,7 +3689,6 @@ def main():
           flush=True)
 
     # -- phase 5b: HMR card vs CPU ------------------------------------------
-    lap("5b")
     print(f"process state at phase 5b: {process_state()}", flush=True)
     # both TF32 flags on for the process: HMR keeps its own convs and
     # matmuls in full float32; its encoder called outside that scope shows
@@ -4550,42 +3718,6 @@ def main():
     check(th_err <= THETA_TOL, f"HMR theta card vs CPU {th_err}")
     torch.backends.cuda.matmul.allow_tf32 = False   # PyTorch's defaults
 
-    # -- phase 6: where a full-leg request's device time goes --------------
-    lap("6")
-    wall, kern, rows = profile_request(
-        lambda: imit_h.inference(tgt_imgs, batch=16),
-        Path("chiprun_out") / "profile_full_leg.txt")
-    hmr_wall, hmr_kern, _ = profile_request(
-        lambda: imit_h.regress_smpl(tgt_imgs[:16]),
-        Path("chiprun_out") / "profile_hmr.txt")
-    print(f"profile, one 64-frame full-leg request at batch 16: wall "
-          f"{wall:.2f} ms (profiler on), {kernel_share(kern, wall)}; HMR "
-          f"alone {not_measured(hmr_kern, '.2f')} ms of kernels per batch "
-          f"of 16 {tag}")
-    for ms, n, name in rows[:12]:
-        print(f"profile: {ms:9.3f} ms {n:5d} x {name[:90]}")
-    for ms, n, name in rows:
-        if "zbuffer" in name:
-            print(f"profile: {ms / n:.4f} ms of device time per launch "
-                  f"(mean) ({n} launches) of {name[:70]}")
-    vwall, vkern, vrows = profile_request(
-        lambda: viewer.view_by_smpls(view_thetas, batch=16),
-        Path("chiprun_out") / "profile_view.txt")
-    print(f"profile, one 64-view view_by_smpls request at batch 16: wall "
-          f"{vwall:.2f} ms (profiler on), {kernel_share(vkern, vwall)} "
-          f"{tag}")
-    for ms, n, name in vrows[:10]:
-        print(f"profile view: {ms:9.3f} ms {n:5d} x {name[:90]}")
-    swall, skern, srows = profile_request(
-        lambda: swapper.swap(target_part="body"),
-        Path("chiprun_out") / "profile_swap.txt")
-    print(f"profile, one swap('body') at batch 1: wall {swall:.2f} ms "
-          f"(profiler on), {kernel_share(skern, swall)} in "
-          f"{sum(r[1] for r in srows)} launches {tag}")
-    for ms, n, name in srows[:8]:
-        print(f"profile swap: {ms:9.3f} ms {n:5d} x {name[:90]}")
-    sys.stdout.flush()
-
     # launches: each kernel's count over the path that carries it — the
     # full leg (4b) for the bucket kernels, the tiled route (3c) for
     # zbuffer_tiles
@@ -4608,13 +3740,7 @@ def main():
          "replaces": f"impersonator_tpu/ops/pallas_raster.py:{line}",
          "launches": path_launches[name],
          "launches_by_path": {p: c[name] for p, c in by_path.items()},
-         "max_abs_err": errs[name],
-         "ms": timing[name][0][0], "device_ms": timing[name][0][1],
-         "device_ms_by": timing[name][0][2],
-         "held_stream_ms": timing[name][0][3],
-         "plain_ms": timing[name][1],
-         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "bound_ms_all_pairs": bounds[name][2], "library_ms": None}
+         "max_abs_err": errs[name]}
         for name, src, line in (
             ("zbuffer_bucket_rows", "zbuffer_bucket.cu", 365),
             ("zbuffer_bucket_flow", "zbuffer_bucket.cu", 413),
@@ -4630,16 +3756,9 @@ def main():
         "replaces": None, "launches": launches_h["warp_bilinear"],
         "launches_by_path": {p: c["warp_bilinear"]
                              for p, c in warp_paths.items()},
-        "max_abs_err": warp_err, **{k: warp_total[k] for k in (
-            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
-        "device_ms_by": "profiler", "bound_by": "bytes",
-        "by_warp": warp_rows})
+        "max_abs_err": warp_err})
     check(all(k["launches"] > 0 for k in record["kernels"]),
           f"a kernel never launched on its path: {path_launches}")
-    lap(None)
-    print(f"chip_smoke: seconds of wall time by phase {LAPS}", flush=True)
-    print(f"chip_smoke: whole script {time.perf_counter() - t_start:.1f} s "
-          f"of wall time, the kernels' build included {tag}", flush=True)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,20 +14,16 @@ fallback between them:
   frame from device memory.
 
 PNG is decoded by the C++ code with zlib in both builds. Each build is
-compiled at first use into ``impersonator_tpu_torch/_build/``, tagged by
-a hash of the source and the flags, and loaded with ctypes (whose calls
-release the GIL, so the ring's threads and the caller's run together). A
-build that fails raises.
+compiled at first use by ``utils.native_build`` and loaded with ctypes
+(whose calls release the GIL, so the ring's threads and the caller's run
+together). A build that fails raises.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-import hashlib
-import os
 import shutil
-import subprocess
 import threading
 from pathlib import Path
 from types import SimpleNamespace
@@ -35,9 +31,9 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "host_codec.cpp"
-BUILD_DIR = _PKG / "_build"
+from impersonator_tpu_torch.utils import native_build
+
+SOURCE = native_build.CSRC / "host_codec.cpp"
 CXX_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-fPIC", "-pthread",
              "-shared")
 JPEG_QUALITY = 95
@@ -65,42 +61,27 @@ _LIBS: dict = {}
 _LOCK = threading.Lock()
 
 
-def _command(kind: str, out: Path) -> list:
+def _command(kind: str) -> list:
     if kind == "cpu":
         cxx = shutil.which("g++") or shutil.which("c++")
         if cxx is None:
             raise RuntimeError("no C++ compiler (g++) to build the codec")
-        return [cxx, *CXX_FLAGS, "-DCODEC_LIBJPEG", "-o", str(out),
-                str(SOURCE), "-ljpeg", "-lz"]
-    from impersonator_tpu_torch.ops.cuda_raster import _nvcc
-    nvcc = _nvcc()
+        return [cxx, *CXX_FLAGS, "-DCODEC_LIBJPEG", str(SOURCE), "-ljpeg",
+                "-lz"]
+    nvcc = native_build.nvcc()
     lib64 = Path(nvcc).resolve().parent.parent / "lib64"
     host = ",".join(f for f in CXX_FLAGS if f not in ("-O3", "-std=c++17",
                                                       "-shared"))
     return [nvcc, "-O3", "-std=c++17", "-shared", "-Xcompiler", host,
-            "-DCODEC_NVJPEG", "-o", str(out), str(SOURCE), "-lnvjpeg", "-lz",
-            "-Xlinker", f"-rpath,{lib64}"]
+            "-DCODEC_NVJPEG", str(SOURCE), "-lnvjpeg", "-lz", "-Xlinker",
+            f"-rpath,{lib64}"]
 
 
 def _build(kind: str) -> SimpleNamespace:
-    tag = hashlib.sha256(SOURCE.read_bytes() + kind.encode()
-                         + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"host_codec_{kind}_{tag}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(_command(kind, tmp), capture_output=True,
-                              text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"building the {kind} codec failed:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    so = ctypes.CDLL(str(out))
-    lib = SimpleNamespace(path=str(out), kind=kind)
-    for name, (res, args) in _SYMBOLS.items():
-        fn = getattr(so, name)
-        fn.restype, fn.argtypes = res, args
-        setattr(lib, name, fn)
+    (path,), _ = native_build.build([(f"host_codec_{kind}", SOURCE,
+                                      _command(kind))])
+    lib = native_build.bind(path, _SYMBOLS)
+    lib.kind = kind
     return lib
 
 

@@ -1,5 +1,4 @@
-"""The z-buffer kernels: CUDA wrappers, their plain PyTorch twins and
-the nvcc build.
+"""The z-buffer kernels: CUDA wrappers and their plain PyTorch twins.
 
 Counterparts of the Pallas TPU kernels of
 ``impersonator_tpu/ops/pallas_raster.py``:
@@ -12,10 +11,8 @@ Counterparts of the Pallas TPU kernels of
   fixed-slot z-buffer over the per-tile candidate slots of
   ``ops.rasterizer._tiled_candidates``.
 
-Every ``csrc/*.cu`` is compiled for ``sm_90a`` by nvcc at first use into
-``_build/`` (one shared library per source, all sources at once) and
-loaded with ctypes; :func:`library` hands the entry points to the other
-wrappers (``ops/cuda_warp.py``'s ``csrc/warp_bilinear.cu``).
+``utils.native_build`` compiles the sources for ``sm_90a`` at first use
+and loads them; each wrapper binds its source's entry points.
 
 Bucket inputs (the layout ``_bucket_sort`` emits):
 
@@ -48,41 +45,22 @@ tile's slots across teams of warps, for the tests.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from types import SimpleNamespace
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+from impersonator_tpu_torch.utils import native_build
 
-_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
-# the C entry points of each source and their argument types
-SYMBOLS = {
-    "zbuffer_bucket.cu": {
-        "zbuffer_bucket_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                _F, _P],
-        "zbuffer_bucket_flow": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _F, _F, _P],
-    },
-    "zbuffer_tiles.cu": {
-        "zbuffer_tiles": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                          _P],
-    },
-    # ops/cuda_warp.py's kernel
-    "warp_bilinear.cu": {
-        name: [_P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
-               _L, _L, _P]
-        for name in ("warp_bilinear_bf16", "warp_bilinear_f16")
-    },
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# each source's C entry points: (restype, argtypes)
+BUCKET_SYMBOLS = {
+    "zbuffer_bucket_rows": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                 _F, _P]),
+    "zbuffer_bucket_flow": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _F, _F, _P]),
+}
+TILES_SYMBOLS = {
+    "zbuffer_tiles": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                           _P]),
 }
 
 # elements of one (batch, tile, pixel, candidate) block the plain twins
@@ -96,91 +74,6 @@ WARP_W, WARP_H = 8, 4
 # floor far above any subnormal rounding, and the magnitude above which a
 # face is never culled
 _CULL_REL, _CULL_ABS, _CULL_MAX = 2.0 ** -19, 2.0 ** -100, 2.0 ** 40
-
-
-class _Library:
-    """The compiled kernels, built and loaded on first use."""
-
-    def __init__(self):
-        self.lib = None
-        self.build_log = ""
-
-    def get(self) -> SimpleNamespace:
-        if self.lib is None:
-            self.lib, self.build_log = _build_and_load()
-        return self.lib
-
-
-_LIBRARY = _Library()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build impersonator_tpu_torch's kernels")
-    return str(path)
-
-
-def _build_and_load():
-    """Compile every csrc/*.cu not yet built (one nvcc each, all started
-    together), load each library and bind its symbols."""
-    sources = sorted(CSRC.glob("*.cu"))
-    unknown = [src.name for src in sources if src.name not in SYMBOLS]
-    if unknown:
-        raise RuntimeError(f"no symbol table for {unknown}")
-    BUILD_DIR.mkdir(exist_ok=True)
-    outs, running = {}, []
-    for src in sources:
-        tag = hashlib.sha256(src.read_bytes()
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = BUILD_DIR / f"{src.stem}_{tag}.so"
-        outs[src.name] = out
-        if not out.exists():
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            log = tmp.with_suffix(".log")
-            with open(log, "w") as fh:
-                proc = subprocess.Popen(
-                    [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                    stdout=fh, stderr=subprocess.STDOUT)
-            running.append((src, tmp, out, log, proc))
-    logs, failed = [], []
-    for src, tmp, out, log_path, proc in running:
-        proc.wait()
-        log = log_path.read_text()
-        log_path.unlink()
-        logs.append(log)
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {src}:\n{log}")
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    lib = SimpleNamespace()
-    for name, out in outs.items():
-        so = ctypes.CDLL(str(out))
-        for sym, argtypes in SYMBOLS[name].items():
-            fn = getattr(so, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            setattr(lib, sym, fn)
-    return lib, "".join(logs)
-
-
-def library() -> SimpleNamespace:
-    """Every csrc/*.cu's entry points, built and loaded on first use."""
-    return _LIBRARY.get()
-
-
-def build() -> str:
-    """Compile (if needed) and load the kernels; returns nvcc's output of
-    this process's builds ('' when every library was already built)."""
-    _LIBRARY.get()
-    return _LIBRARY.build_log
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +121,7 @@ def zbuffer_bucket_rows(verts, fid, starts, s: int, tile: int, span: int,
                                          near, far)
     if verts.device.type != "cuda":
         raise ValueError(f"no kernel for device {verts.device}")
-    lib = _LIBRARY.get()
+    lib = native_build.kernel("zbuffer_bucket.cu", BUCKET_SYMBOLS)
     fim = torch.empty((b, s, s), dtype=torch.int32, device=verts.device)
     wim = torch.empty((b, s, s, 3), dtype=torch.float32, device=verts.device)
     with torch.cuda.device(verts.device):
@@ -251,7 +144,7 @@ def zbuffer_bucket_flow(verts, fid, srcxy, starts, s: int, tile: int,
                                          span, near, far)
     if verts.device.type != "cuda":
         raise ValueError(f"no kernel for device {verts.device}")
-    lib = _LIBRARY.get()
+    lib = native_build.kernel("zbuffer_bucket.cu", BUCKET_SYMBOLS)
     fim = torch.empty((b, s, s), dtype=torch.int32, device=verts.device)
     flow = torch.empty((b, s, s, 2), dtype=torch.float32, device=verts.device)
     with torch.cuda.device(verts.device):
@@ -294,7 +187,7 @@ def zbuffer_tiles(packed, cand, valid, s: int, tile: int, near: float,
         return zbuffer_tiles_plain(packed, cand, valid, s, tile, near, far)
     if packed.device.type != "cuda":
         raise ValueError(f"no kernel for device {packed.device}")
-    lib = _LIBRARY.get()
+    lib = native_build.kernel("zbuffer_tiles.cu", TILES_SYMBOLS)
     fim = torch.empty((b, s, s), dtype=torch.int32, device=packed.device)
     wim = torch.empty((b, s, s, 3), dtype=torch.float32, device=packed.device)
     with torch.cuda.device(packed.device):

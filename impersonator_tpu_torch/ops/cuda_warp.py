@@ -1,12 +1,12 @@
 """The half-precision bilinear warp: CUDA wrapper and its plain PyTorch
 twin.
 
-``csrc/warp_bilinear.cu`` (built and loaded with the z-buffer kernels by
-``ops.cuda_raster``) replaces no TPU kernel: the JAX package's
-``grid_sample`` and ``grid_sample_patched`` (``impersonator_tpu/ops/
-sampler.py``) are plain jnp, and :func:`warp_bilinear_plain` is their
-arithmetic in PyTorch. The kernel computes that arithmetic in one pass
-(the source says why and what bounds it) and gives the twin's bits.
+``csrc/warp_bilinear.cu`` (built and loaded by ``utils.native_build``)
+replaces no TPU kernel: the JAX package's ``grid_sample`` and
+``grid_sample_patched`` (``impersonator_tpu/ops/sampler.py``) are plain
+jnp, and :func:`warp_bilinear_plain` is their arithmetic in PyTorch. The
+kernel computes that arithmetic in one pass (the source says why and
+what bounds it) and gives the twin's bits.
 
 :func:`warp_bilinear` picks the route from what it is given: a CPU tensor
 runs the twin; a CUDA tensor launches the kernel, also where autograd
@@ -22,11 +22,16 @@ import ctypes
 
 import torch
 
-from impersonator_tpu_torch.ops import cuda_raster
+from impersonator_tpu_torch.utils import native_build
 
 # x dtypes the kernel takes, and its entry point for each
 ENTRY = {torch.bfloat16: "warp_bilinear_bf16",
          torch.float16: "warp_bilinear_f16"}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# the entry points: (restype, argtypes)
+SYMBOLS = {name: (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L,
+                       _L, _L, _L, _L, _P])
+           for name in ENTRY.values()}
 CHUNK = 32                  # the source's kChunk: channels a block
 MAX_GRID_YZ = 65535         # CUDA's limit on a launch grid's y and z
 
@@ -80,7 +85,7 @@ def _launch(x, grid):
     out = torch.empty((n, c, ho, wo), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    lib = cuda_raster.library()
+    lib = native_build.kernel("warp_bilinear.cu", SYMBOLS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, ENTRY[x.dtype])(

@@ -139,6 +139,7 @@ PORT_MODULES = [
     "impersonator_tpu_torch.cli.demos",
     "impersonator_tpu_torch.ops.colorspace",
     "impersonator_tpu_torch.data.native",
+    "impersonator_tpu_torch.utils.native_build",
     "impersonator_tpu_torch.utils.video",
     "impersonator_tpu_torch.utils.profiling",
     "impersonator_tpu_torch.utils.mesh_io",

@@ -16,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from impersonator_tpu_torch.ops import cuda_raster, cuda_warp
+from impersonator_tpu_torch.ops import cuda_warp
 from impersonator_tpu_torch.ops import sampler
+from impersonator_tpu_torch.utils import native_build
 from torch_threads import one_torch_thread  # noqa: F401
 
 N = 16
@@ -132,10 +133,10 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
     """bf16 and fp16 CPU calls, with and without autograd recording them,
     run the twin: the library is never loaded and the counter does not
     move."""
-    def no_library():
+    def no_library(source, table):
         raise AssertionError("a CPU call reached the kernel's library")
 
-    monkeypatch.setattr(cuda_raster, "library", no_library)
+    monkeypatch.setattr(native_build, "kernel", no_library)
     before = cuda_warp.warp_bilinear.launches
     grid = _grid(2, 6, 6, seed=4)
     for dtype in DTYPES:
